@@ -1,0 +1,3 @@
+from repro_torch.data.synthetic import (
+    dp_stick_breaking_data, bp_stick_breaking_data, separable_cluster_data,
+)

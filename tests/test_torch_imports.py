@@ -1,0 +1,63 @@
+"""Import hygiene of the port: it never imports JAX or the JAX package.
+
+An AST scan of every module of `src/repro_torch/` and of `chip_smoke.py`,
+and a subprocess in which `jax` and `repro` cannot be imported at all that
+imports the port and runs a tiny pass on the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    for name in _imported(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), \
+            f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_port_runs_with_jax_and_repro_blocked():
+    code = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+import repro_torch.convert, repro_torch.core._reference
+from repro_torch.core import DPMeansTransaction, OCCEngine, occ_dp_means
+from repro_torch.data import dp_stick_breaking_data
+from repro_torch.kernels import _build
+x = dp_stick_breaking_data(300, seed=0)[0]
+res = OCCEngine(DPMeansTransaction(4.0, 64), 64, device="cpu").run(x)
+occ = occ_dp_means(x, 4.0, 64, k_max=64, max_iters=2, device="cpu")
+assert 1 <= int(res.pool.count) < 64 and occ.z.shape == (300,)
+assert not _build._LIBS   # the CPU path never builds or loads a kernel
+print("OK", int(res.pool.count))
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("OK")
