@@ -25,7 +25,7 @@ a row's nearest-center result does not depend on its batch, so streams are
 bit-identical to one-shot runs on the card too.
 
 Not ported yet (see ROADMAP.md): `mesh`, `obs` telemetry (only `obs=None`
-is accepted), `run_from_proposals`, `restore`.
+is accepted), `run_from_proposals`.
 """
 from __future__ import annotations
 
@@ -392,6 +392,26 @@ class OCCEngine:
         self._pool, self._n_seen, self._stat_chunks = None, 0, []
         self._epoch_base = 0
         self._carry_x = self._carry_state = None
+
+    def restore(self, snapshot, *, k_max: int) -> None:
+        """Resume a stream from a published `serving.ModelSnapshot`.
+
+        Seeds the pool (re-expanded to the trainer's (k_max, D) buffer on
+        the engine's device; rows beyond `count` are zero, as in the live
+        pool), the global point and epoch counters, and the adaptive-cap
+        estimate the snapshot persisted (`cap_est`), so the first pass runs
+        at the warm cap.  The stream continues from the snapshot's
+        `n_seen`: points after the last publish must be sent again.  From
+        the restore point on, the stream equals the uninterrupted one bit
+        for bit."""
+        if self._pool is not None or self._n_seen:
+            raise ValueError("restore() requires a fresh engine/stream")
+        self._pool = tree_map(lambda t: t.to(self.device),
+                              snapshot.to_pool(k_max))
+        self._n_seen = snapshot.n_seen
+        self._epoch_base = snapshot.epochs
+        if self.adaptive and snapshot.cap_est is not None:
+            self._cap_est = snapshot.cap_est
 
     def _empty_stream_result(self, x1: torch.Tensor) -> OCCPassResult:
         """A zero-point result (pool unchanged, length-0 outputs), returned

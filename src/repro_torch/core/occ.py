@@ -30,6 +30,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.objective import sq_dists
 from repro_torch.kernels import ops as _kops
 
@@ -83,7 +84,10 @@ class OCCStats(NamedTuple):
 
 
 def make_pool(k_max: int, dim: int, dtype=torch.float32,
-              device: torch.device | str = "cpu") -> CenterPool:
+              device: torch.device | str = "cuda") -> CenterPool:
+    """An empty pool on `device` (the card unless the caller asks for the
+    CPU; without a card "cuda" raises)."""
+    device = resolve_device(device)
     return CenterPool(
         centers=torch.zeros((k_max, dim), dtype=dtype, device=device),
         mask=torch.zeros((k_max,), dtype=torch.bool, device=device),

@@ -26,31 +26,35 @@
 // wgmma/TMA for a lower-precision tier.
 //
 // Exactness.  Every dot product, ||x||^2 and ||c||^2 is a chain of fmaf in
-// ascending d, the distance is formed with round-to-nearest intrinsics (no
-// contraction), and each row keeps the lexicographic minimum of (d2, index)
-// starting from (inf, -1).  That minimum does not depend on the order in
-// which candidates are met, so a row's result depends only on that row and
-// the centers: not on N, on its position in the batch, or on the grid.
+// ascending d, as in the top-k kernels' `sqdist.cuh` (whose tile size this
+// kernel shares); the distance is combined by that header's `combine`
+// (round-to-nearest intrinsics, no contraction), and each row keeps the
+// lexicographic minimum of (d2, index) starting from (inf, -1).  That
+// minimum does not depend on the order in which candidates are met, so a
+// row's result depends only on that row and the centers: not on N, on its
+// position in the batch, or on the grid.
 // Ties go to the lowest index, as the TPU kernel's in-tile argmin plus
 // strict-< running merge does.  A row with no valid center returns (inf, -1).
+//
+// The tile loop is written out here rather than taken from the header's
+// `tile_dots`: on the H100, with `tile_dots`, ptxas gave this kernel 48
+// registers and spills and it ran 36% slower at the retrieval shape.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <math_constants.h>
+#include "sqdist.cuh"
 
 namespace {
 
-constexpr int BM = 64;      // query rows per block
-constexpr int BK = 64;      // centers per tile
-constexpr int DC = 32;      // D chunk staged in shared memory
-constexpr int TX = 16;      // threads along centers
-constexpr int TY = 16;      // threads along rows
-constexpr int RM = BM / TY; // rows per thread (4)
-constexpr int RK = BK / TX; // centers per thread (4)
-constexpr int NT = TX * TY; // 256 threads
+using sqdist::BK;
+using sqdist::BM;
+using sqdist::DC;
+using sqdist::NT;
+using sqdist::RK;
+using sqdist::RM;
+using sqdist::TX;
+using sqdist::TY;
 
 __device__ __forceinline__ void lex_min(float& d, int& i, float od, int oi) {
-  if (od < d || (od == d && oi < i)) {
+  if (sqdist::lex_less(od, oi, d, i)) {
     d = od;
     i = oi;
   }
@@ -150,8 +154,7 @@ dpmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
         const float xx = x2s[ty + TY * i];
-        float v = __fsub_rn(__fadd_rn(xx, cc), __fmul_rn(2.f, acc[i][q]));
-        v = fmaxf(v, 0.f);
+        const float v = sqdist::combine(xx, cc, acc[i][q]);
         lex_min(best_d[i], best_i[i], valid ? v : CUDART_INF_F,
                 valid ? gk : INT32_MAX);
       }

@@ -8,7 +8,9 @@ The device of the input decides, never a probe of the machine:
   backend="plain"  -> the plain version on any device (comparisons only)
 
 There is no fallback: a CUDA tensor reaches the plain version only when
-`backend="plain"` is asked for.  Each kernel has a plain-int launch count,
+`backend="plain"` is asked for.  The serving primitives (`serve_assign`,
+`serve_topk`, `serve_topk_multiprobe`) add the query-prefix mask of a
+padded bucket.  Each kernel has a plain-int launch count,
 raised by one where the kernel is launched and nowhere else, so a run can
 show that its main path went through the kernel.
 """
@@ -18,17 +20,27 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dpmeans_assign import dpmeans_assign as _dpmeans_assign
+from repro_torch.kernels.topk_stream import (
+    topk_multiprobe_stream as _topk_mp_stream,
+    topk_stream as _topk_stream,
+)
 
-__all__ = ["assign", "pairwise_argmin", "ASSIGN_LAUNCHES",
-           "PAIRWISE_ARGMIN_LAUNCHES", "reset_launch_counts"]
+__all__ = ["assign", "pairwise_argmin", "serve_assign", "serve_topk",
+           "serve_topk_multiprobe", "ASSIGN_LAUNCHES",
+           "PAIRWISE_ARGMIN_LAUNCHES", "TOPK_LAUNCHES", "TOPK_MP_LAUNCHES",
+           "reset_launch_counts"]
 
 ASSIGN_LAUNCHES = 0
 PAIRWISE_ARGMIN_LAUNCHES = 0
+TOPK_LAUNCHES = 0
+TOPK_MP_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
-    global ASSIGN_LAUNCHES, PAIRWISE_ARGMIN_LAUNCHES
+    global ASSIGN_LAUNCHES, PAIRWISE_ARGMIN_LAUNCHES, TOPK_LAUNCHES, \
+        TOPK_MP_LAUNCHES
     ASSIGN_LAUNCHES = PAIRWISE_ARGMIN_LAUNCHES = 0
+    TOPK_LAUNCHES = TOPK_MP_LAUNCHES = 0
 
 
 def _use_kernel(x: torch.Tensor, backend: str) -> bool:
@@ -90,3 +102,101 @@ def pairwise_argmin(x, centers, mask=None, backend: str = "auto"):
         PAIRWISE_ARGMIN_LAUNCHES += 1
         return out
     return _ref.pairwise_argmin_ref(x, centers, mask)
+
+
+def _mask_queries(d2, idx, n_valid):
+    """Rows at or past `n_valid` (an int or a device scalar) become
+    (inf, -1): padding rows of a bucket can never alias a real answer."""
+    if n_valid is None:
+        return d2, idx
+    ok = torch.arange(d2.shape[0], device=d2.device) < n_valid
+    if d2.dim() == 2:
+        ok = ok[:, None]
+    return torch.where(ok, d2, torch.inf), torch.where(ok, idx, -1)
+
+
+def serve_assign(x, centers, mask=None, count=None, n_valid=None,
+                 backend: str = "auto"):
+    """Bucket-padded assignment, the serving plane's query primitive:
+    `assign` plus query-prefix masking (`n_valid` real rows; the padding
+    rows of the bucket come back as (inf, -1))."""
+    d2, idx = assign(x, centers, mask, count=count, backend=backend)
+    return _mask_queries(d2, idx, n_valid)
+
+
+def _pad_columns(d2, idx, k: int):
+    """(inf, -1) columns up to k (k may exceed the center capacity)."""
+    pad = k - d2.shape[1]
+    if pad <= 0:
+        return d2, idx
+    n = d2.shape[0]
+    return (torch.cat([d2, d2.new_full((n, pad), torch.inf)], 1),
+            torch.cat([idx, idx.new_full((n, pad), -1)], 1))
+
+
+def _next_pow2(n: int) -> int:
+    # A local copy of core.occ.next_pow2: core.occ imports this module.
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def serve_topk(x, centers, k: int, mask=None, count=None, n_valid=None,
+               backend: str = "auto"):
+    """k nearest centers per query: (d2 (N, k) ascending, idx (N, k) int32).
+
+    The same count-prefix and query-prefix masking as `serve_assign`;
+    masked, padded and beyond-count slots are (inf, -1), and distance ties
+    go to the lower index on both paths, so `topk[:, :1]` equals
+    `serve_assign`.  The kernel reads `count` on the device and stops its
+    center loop there.  On the plain path a host-int `count` first slices
+    the centers to the power-of-two active prefix (min 8), which changes no
+    surviving distance.  k may exceed the capacity: the extra columns are
+    (inf, -1).  The kernel takes k <= 64 and raises a ValueError beyond.
+    """
+    global TOPK_LAUNCHES
+    kc = centers.shape[0]
+    if mask is None:
+        mask = torch.ones((kc,), dtype=torch.bool, device=centers.device)
+    if _use_kernel(x, backend):
+        kk = min(k, kc)
+        d2, idx = _topk_stream(x, centers, mask,
+                               _count_tensor(count, kc, x.device), kk)
+        TOPK_LAUNCHES += 1
+    else:
+        if count is not None:
+            mask = mask & (torch.arange(kc, device=centers.device) < count)
+        if count is not None and not isinstance(count, torch.Tensor):
+            kp = min(kc, max(_next_pow2(max(int(count), 1)), 8))
+            centers, mask = centers[:kp], mask[:kp]
+        d2, idx = _ref.topk_ref(x, centers, min(k, centers.shape[0]), mask)
+    d2, idx = _pad_columns(d2, idx, k)
+    return _mask_queries(d2, idx, n_valid)
+
+
+def serve_topk_multiprobe(x, fine, fine_ids, fine_mask, cells, member,
+                          k: int, u_count=None, n_valid=None,
+                          backend: str = "auto"):
+    """Top-k over a hierarchical snapshot's probed fine shards.
+
+    x (B, D); fine (n_cells, S, D), fine_ids / fine_mask (n_cells, S) as
+    `serving.snapshot.build_hier` lays them out; cells (U,) the
+    microbatch's probed-cell union (packed ascending, -1 pad); member (B, U)
+    per-query membership; `u_count` the union's real length (an int or a
+    device scalar).  Returns (d2 (B, k), idx (B, k)) with idx flat-snapshot
+    ids.  With every cell in the union and member all true the result
+    equals `serve_topk` on the flat buffers (on the card bitwise, by the
+    kernels' shared arithmetic).  The plain version gathers the union and
+    ignores `u_count` (its padding ranks are -1 and match nothing).
+    """
+    global TOPK_MP_LAUNCHES
+    if _use_kernel(x, backend):
+        d2, idx = _topk_mp_stream(
+            x, fine, fine_ids, fine_mask, cells, member,
+            _count_tensor(u_count, cells.shape[0], x.device), k)
+        TOPK_MP_LAUNCHES += 1
+    else:
+        d2, idx = _ref.topk_multiprobe_ref(x, fine, fine_ids, fine_mask,
+                                           cells, member, k)
+    return _mask_queries(d2, idx, n_valid)

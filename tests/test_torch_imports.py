@@ -2,7 +2,8 @@
 
 An AST scan of every module of `src/repro_torch/` and of `chip_smoke.py`,
 and a subprocess in which `jax` and `repro` cannot be imported at all that
-imports the port and runs a tiny pass on the CPU.
+imports the port, runs a tiny pass on the CPU, publishes it and serves one
+top-k query from it.
 """
 import ast
 import os
@@ -49,9 +50,14 @@ from repro_torch.core import DPMeansTransaction, OCCEngine, occ_dp_means
 from repro_torch.data import dp_stick_breaking_data
 from repro_torch.kernels import _build
 x = dp_stick_breaking_data(300, seed=0)[0]
-res = OCCEngine(DPMeansTransaction(4.0, 64), 64, device="cpu").run(x)
+from repro_torch.serving import ClusterService, SnapshotStore
+store = SnapshotStore(hier=True, device="cpu")
+res = OCCEngine(DPMeansTransaction(4.0, 64), 64, device="cpu",
+                publish=store.publish_pass).run(x)
 occ = occ_dp_means(x, 4.0, 64, k_max=64, max_iters=2, device="cpu")
 assert 1 <= int(res.pool.count) < 64 and occ.z.shape == (300,)
+top = ClusterService(store, probes=1).topk(x[:5], k=2)
+assert top.labels.shape == (5, 2) and top.version == 1
 assert not _build._LIBS   # the CPU path never builds or loads a kernel
 print("OK", int(res.pool.count))
 """
