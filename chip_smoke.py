@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-  python3 chip_smoke.py [--phases device,build,kernels,dp_paper,retrieval,serve,invariants]
+  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,retrieval,serve,invariants,lm_serve]
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
@@ -9,9 +9,10 @@ the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
 PyTorch version on the card, runs the OCC DP-means pass of the paper's §4
 experiment and the repository's largest state (a 110k-center retrieval
 index) through the port's public entry points, serves that index (flat
-and multi-probe top-k, score) through the port's serving plane, and checks
-the port's bitwise invariants on the card.  `--phases serve` alone trains
-the retrieval index first.
+and multi-probe top-k, score) through the port's serving plane, checks
+the port's bitwise invariants on the card, and serves the language model
+qwen3-4b (prefill and the slot engine's decode) at full width and depth.
+`--phases serve` alone trains the retrieval index first.
 
 Every phase prints one JSON line.  The line before the last lists each
 kernel with its launches on the main path, its error against the plain
@@ -24,19 +25,24 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
 
-ALL_PHASES = ("device", "build", "kernels", "dp_paper", "retrieval", "serve",
-              "invariants")
-KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream")
-SOURCES = ("dpmeans_assign", "topk_stream")     # csrc/<name>.cu
+ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper",
+              "retrieval", "serve", "invariants", "lm_serve")
+KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream",
+           "flash_attention", "rmsnorm", "swiglu")
+SOURCES = ("dpmeans_assign", "topk_stream", "flash_attention", "rmsnorm",
+           "swiglu")     # csrc/<name>.cu
 
-# NVIDIA H100 SXM data sheet, dense: f32 outside the tensor cores, HBM3.
+# NVIDIA H100 SXM data sheet, dense: f32 outside the tensor cores, bf16 on
+# the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # The paper's §4 clustering data (benchmarks/fig4_scaling.py).
 DP_N = 2**20
@@ -46,6 +52,27 @@ DP_N = 2**20
 REL_TOL = 1e-5
 # Requests of each kind behind the serve phase's latency percentiles.
 LAT_REQUESTS = 2048
+# Language-model kernels against their plain versions on the card: f32
+# outputs within these multiples of max(1, max |plain|) (flash: the 2e-5
+# of an f32 attention output; rmsnorm, swiglu: a few f32 ulps, both sum or
+# divide in another order), bf16 outputs within one bf16 ulp at the
+# output's largest magnitude (both round the same f32 value once).
+LM_TOL_F32 = {"flash_attention": 2e-5, "rmsnorm": 1e-6, "swiglu": 1e-6}
+# Full-width f32 qwen3-4b (2 layers): prefill logits with the kernels and
+# with the plain versions agree within this multiple of max(1, max |logit|).
+LOGIT_TOL = 1e-4
+# Full-depth bf16 qwen3-4b (36 layers): last-token logits of two routes
+# through the same weights (kernels against plain versions; decode_step
+# after a prefill against one longer prefill) agree within this fraction of
+# max |logit|.  Each route rounds every layer's activations to bf16 (8
+# bits) at other points, and the residual stream carries those roundings
+# through all 36 layers; a wrong layer, stride or cache position moves the
+# logits by their own scale.
+BF16_LOGIT_TOL = 0.05
+# The full-depth engine run: 8 requests of prompt 64 on 4 slots, each to
+# this many new tokens, so that the decode-tick percentiles rest on 512
+# ticks.
+SERVE_MAX_NEW = 256
 
 
 def emit(obj) -> None:
@@ -87,6 +114,8 @@ def main() -> int:
         getattr(smoke, p)()
         smoke.phase_seconds[p] = time.perf_counter() - t0
     emit({"phase": "summary", "phase_seconds": smoke.phase_seconds})
+    if smoke.card:
+        print(smoke.card, flush=True)    # nvidia-smi's name and power limit
     emit({"kernels": smoke.kernel_rows()})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -162,6 +191,7 @@ class Smoke:
         self.timings: list[dict] = []
         self.main_launches: dict[str, int | None] = dict.fromkeys(KERNELS)
         self.retrieval_launches: int | None = None
+        self.lm_launches: dict[str, dict] = {}   # prefill / serve counts
         self.dp_x = None
         self.index = None          # (chunks numpy, trained pool)
         self.card = ""             # nvidia-smi name and power limit
@@ -281,23 +311,29 @@ class Smoke:
             n=n, k=c.shape[0], d=d, count=int(cnt))
 
     def _time_kernel(self, kernel_name, shape, kernel, plain, *, flops,
-                     nbytes, **meta):
+                     nbytes, peak_flops=PEAK_F32_FLOPS, library=None,
+                     **meta):
         """Device time of a kernel and of its plain version at one shape,
-        beside the bound: the larger of its operations at the f32 peak and
-        its bytes (each input read once, each output written once) at the
-        memory rate.  The plain version is timed as a CUDA graph replay, so
-        its time is the card's, not its host launch path's.  No single
-        PyTorch call computes these functions, so library_ms is None."""
+        beside the bound: the larger of its operations at `peak_flops` (the
+        peak for the inputs' type: f32 outside the tensor cores unless
+        given) and its bytes (each input read once, each output written
+        once) at the memory rate.  The plain version is timed as a CUDA
+        graph replay, so its time is the card's, not its host launch
+        path's.  `library` is the one PyTorch call that computes the same
+        function, where there is one (library_ms is None otherwise); it is
+        timed like the kernel."""
         torch = self.torch
         k_ms, k_ahead = _queued_ms(torch, kernel)
         p_ms, p_ahead = _graph_ms(torch, plain)
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        lib_ms = None if library is None else _queued_ms(torch, library)[0]
+        t_ops = flops / peak_flops * 1e3
         t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
         row = {"kernel": kernel_name, "shape": shape, **meta,
                "ms": k_ms, "plain_ms": p_ms,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "flops": flops, "bytes": nbytes, "library_ms": None,
+               "peak_flops": peak_flops,
+               "flops": flops, "bytes": nbytes, "library_ms": lib_ms,
                "queued_ahead": k_ahead, "plain_queued_ahead": p_ahead,
                "plain_timing": "cuda graph replay",
                "single_launch_ms": _median_ms(torch, kernel),
@@ -645,15 +681,11 @@ class Smoke:
         wall = time.perf_counter() - t0
         tot = kern = 0.0
         n_kern = 0
-        for ev in prof.key_averages():
-            dt = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0)) or 0.0
-            if dt <= 0:
-                continue
+        for key, dt, count in _device_events(prof):
             tot += dt
-            if "dpmeans_assign" in ev.key:
+            if "dpmeans_assign" in key:
                 kern += dt
-                n_kern += ev.count
+                n_kern += count
         if tot <= 0:
             return {"profiled_pass": "not measured (no device events)"}
         return {"profiled_pass": {
@@ -1186,30 +1218,416 @@ class Smoke:
                         "lam2": lam * lam})
         return out
 
+    # -------------------------------------------------- language model
+    def _lm_agree(self, kernel, case, got, want, tol_f32=None):
+        """A language-model kernel's output against its plain version's on
+        the same inputs: f32 within LM_TOL_F32 * max(1, max |plain|), bf16
+        within one bf16 ulp at max |plain|."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{kernel} {case}: shape and dtype")
+        check(bool(torch.isfinite(got).all()), f"{kernel} {case}: finite")
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        if got.dtype == torch.float32:
+            tol = LM_TOL_F32[kernel] * max(1.0, scale)
+        else:
+            tol = 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+        check(err <= tol, f"{kernel} {case}: max abs err {err} > {tol}")
+        self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
+        emit({"phase": "lm_kernels", "kernel": kernel, "case": case,
+              "dtype": str(got.dtype).replace("torch.", ""),
+              "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
+              "tol": tol})
+
+    def lm_kernels(self):
+        """flash_attention, rmsnorm and swiglu against their plain versions
+        (f32 and bf16; GQA groups 1/4/8, causal and not, S = 128, 4096 and
+        100), what their wrappers refuse, and their times at the qwen3-4b
+        serving shapes beside the bound, the plain version and the library
+        call."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.rmsnorm import rmsnorm
+        from repro_torch.kernels.swiglu import swiglu
+        g = torch.Generator(device=self.dev).manual_seed(self.seed + 300)
+        f32, bf16 = torch.float32, torch.bfloat16
+
+        def randn(shape, dt, mul=1.0):
+            return (torch.randn(shape, generator=g, device=self.dev)
+                    * mul).to(dt)
+        with torch.inference_mode():
+            for dt in (f32, bf16):
+                tag = "f32" if dt == f32 else "bf16"
+                for group in (1, 4, 8):
+                    for b, s in ((2, 128), (1, 4096), (3, 100)):
+                        q = randn((b, 8, s, 128), dt)
+                        k = randn((b, 8 // group, s, 128), dt)
+                        v = randn((b, 8 // group, s, 128), dt)
+                        for causal in (True, False):
+                            self._lm_agree(
+                                "flash_attention",
+                                f"{tag} g{group} S{s} causal={causal}",
+                                flash_attention(q, k, v, causal=causal),
+                                ref.flash_attention_ref(q, k, v, causal))
+                # (B, S, H, Dh) projections read in place through
+                # transposed views, Dh 64, an explicit scale
+                q = randn((2, 256, 4, 64), dt).transpose(1, 2)
+                k = randn((2, 256, 2, 64), dt).transpose(1, 2)
+                v = randn((2, 256, 2, 64), dt).transpose(1, 2)
+                self._lm_agree("flash_attention", f"{tag} strided Dh64",
+                               flash_attention(q, k, v, scale=0.2),
+                               ref.flash_attention_ref(q, k, v, scale=0.2))
+                for shape in ((16384, 2560), (4, 2560), (2, 3, 2560),
+                              (7, 33)):
+                    x, w = randn(shape, dt), randn(shape[-1:], dt)
+                    self._lm_agree("rmsnorm", f"{tag} {shape}",
+                                   rmsnorm(x, w, 1e-6),
+                                   ref.rmsnorm_ref(x, w, 1e-6))
+                for shape in ((16384, 9728), (4, 9728), (5, 17)):
+                    a, u = randn(shape, dt, 3.0), randn(shape, dt)
+                    self._lm_agree("swiglu", f"{tag} {shape}", swiglu(a, u),
+                                   ref.swiglu_ref(a, u))
+                flat = randn((1001,), dt, 3.0)
+                a, u = flat[1:], randn((1000,), dt)    # a misaligned view
+                self._lm_agree("swiglu", f"{tag} misaligned", swiglu(a, u),
+                               ref.swiglu_ref(a, u))
+        # What the wrappers refuse (outside inference mode, so that a
+        # tensor needing a gradient is seen as one).
+        q = randn((1, 8, 128, 128), bf16)
+        k = randn((1, 2, 128, 128), bf16)
+        x, w = randn((4, 2560), bf16), randn((2560,), bf16)
+        wg = w.clone().requires_grad_(True)
+        for what, call, exc in (
+                ("H % Hkv", lambda: flash_attention(q[:, :7], k, k),
+                 ValueError),
+                ("S=200", lambda: flash_attention(
+                    randn((1, 8, 200, 128), bf16),
+                    randn((1, 2, 200, 128), bf16),
+                    randn((1, 2, 200, 128), bf16)), ValueError),
+                ("Dh=48", lambda: flash_attention(q[..., :48].contiguous(),
+                                                  k[..., :48].contiguous(),
+                                                  k[..., :48].contiguous()),
+                 ValueError),
+                ("f16", lambda: rmsnorm(x.half(), w.half()), TypeError),
+                ("mixed dtypes", lambda: swiglu(x, x.float()), TypeError),
+                ("weight shape", lambda: rmsnorm(x, w[:7]), ValueError),
+                ("shape mismatch", lambda: swiglu(x, x[:3]), ValueError),
+                ("needs a gradient", lambda: rmsnorm(x, wg), RuntimeError),
+                ("cpu tensor on the cuda backend",
+                 lambda: ops.swiglu(x.cpu(), x.cpu(), backend="cuda"),
+                 ValueError)):
+            try:
+                call()
+            except exc:
+                continue
+            raise CheckFailed(f"lm_kernels: {what} must raise {exc.__name__}")
+        emit({"phase": "lm_kernels", "raises": True,
+              "max_abs_err": {n: self.max_abs_err[n] for n in
+                              ("flash_attention", "rmsnorm", "swiglu")}})
+        self._time_lm_kernels(randn)
+
+    def _time_lm_kernels(self, randn):
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.rmsnorm import rmsnorm
+        from repro_torch.kernels.swiglu import swiglu
+        bf16 = torch.bfloat16
+        with torch.inference_mode():
+            b, h, hkv, s, dh = 4, 32, 8, 4096, 128
+            # (B, H, S, Dh) views of (B, S, H, Dh) projections, as
+            # attention_train passes them, checked at this shape first
+            q = randn((b, s, h, dh), bf16).transpose(1, 2)
+            k = randn((b, s, hkv, dh), bf16).transpose(1, 2)
+            v = randn((b, s, hkv, dh), bf16).transpose(1, 2)
+            want = ref.flash_attention_ref(q, k, v)
+            self._lm_agree("flash_attention",
+                           f"bf16 prefill {list(q.shape)} / {list(k.shape)} "
+                           "transposed views", flash_attention(q, k, v), want)
+            del want
+            torch.cuda.empty_cache()
+            flops = 2.0 * s * s * dh * b * h     # both products, causal half
+            self._time_kernel(
+                "flash_attention", "prefill",
+                lambda: flash_attention(q, k, v),
+                lambda: ref.flash_attention_ref(q, k, v),
+                flops=flops, nbytes=2.0 * (2 * q.numel() + 2 * k.numel()),
+                peak_flops=PEAK_BF16_FLOPS,
+                library=lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                q=list(q.shape), kv=list(k.shape), dtype="bfloat16",
+                causal=True, bound_ms_f32_cores=flops / PEAK_F32_FLOPS * 1e3)
+            del q, k, v
+            torch.cuda.empty_cache()
+            for shape, rows in (("prefill", 16384), ("decode", 4)):
+                x, w = randn((rows, 2560), bf16), randn((2560,), bf16)
+                self._time_kernel(
+                    "rmsnorm", shape, lambda: rmsnorm(x, w, 1e-6),
+                    lambda: ref.rmsnorm_ref(x, w, 1e-6),
+                    flops=4.0 * x.numel(),
+                    nbytes=2.0 * (2 * x.numel() + w.numel()),
+                    library=lambda: F.rms_norm(x, (2560,), w, 1e-6),
+                    x=list(x.shape), dtype="bfloat16")
+                a, u = randn((rows, 9728), bf16, 3.0), randn((rows, 9728), bf16)
+                self._time_kernel(
+                    "swiglu", shape, lambda: swiglu(a, u),
+                    lambda: ref.swiglu_ref(a, u), flops=5.0 * a.numel(),
+                    nbytes=2.0 * 3 * a.numel(), gate=list(a.shape),
+                    dtype="bfloat16")
+
+    def _lm_counts(self):
+        from repro_torch.kernels import ops
+        return {"flash_attention": ops.FLASH_LAUNCHES,
+                "rmsnorm": ops.RMSNORM_LAUNCHES,
+                "swiglu": ops.SWIGLU_LAUNCHES}
+
+    def lm_serve(self):
+        """qwen3-4b served by the port: at full width and 2 layers in f32,
+        the kernels against the plain versions (prefill logits, and greedy
+        tokens of a ServeEngine run); at full width and depth in bf16,
+        prefill (B 4, S 4096) and a ServeEngine run (8 requests, prompt 64,
+        SERVE_MAX_NEW new tokens each, 4 slots, cache 1024) with exact
+        launch counts, their times and the device's idle share over a warm
+        decode step; then its last-token logits against the plain versions'
+        and decode_step's against prefill's."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.configs import get_arch
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model
+        from repro_torch.serving.engine import Request, ServeEngine
+        base = get_arch("qwen3-4b")
+        vocab = base.vocab
+        rng = np.random.default_rng(self.seed)
+        gen = torch.Generator(device=self.dev).manual_seed(self.seed)
+        res = {}
+        # --- 1. full width, 2 layers, f32: kernels against plain --------
+        cfg2 = base.replace(n_layers=2, dtype="float32", attn_impl="flash")
+        km = build_model(cfg2, device=self.dev).init(gen)
+        pm = build_model(cfg2.replace(attn_impl="chunked"), device=self.dev,
+                         backend="plain")
+        pm.load_state_dict(km.state_dict())
+        toks = rng.integers(0, vocab, (2, 256))
+        ops.reset_launch_counts()
+        lk, _ = km.prefill({"tokens": toks})
+        counts = self._lm_counts()
+        lp, _ = pm.prefill({"tokens": toks})
+        check(self._lm_counts() == counts == {
+            "flash_attention": 2, "rmsnorm": 5, "swiglu": 2},
+            f"lm_serve f32: launches {counts} for a 2-layer prefill, none "
+            "for the plain one")
+        err = float((lk - lp).abs().max())
+        tol = LOGIT_TOL * max(1.0, float(lp.abs().max()))
+        check(bool(torch.isfinite(lk).all()) and lk.shape == (2, vocab)
+              and err <= tol,
+              f"lm_serve f32: prefill logits kernels vs plain {err} > {tol}")
+        prompts = [rng.integers(0, vocab, 12) for _ in range(6)]
+        outs = []
+        for model in (km, pm):
+            eng = ServeEngine(model, n_slots=2, cache_len=64)
+            ops.reset_launch_counts()
+            done = eng.run([Request(uid=i, prompt=p, max_new=8)
+                            for i, p in enumerate(prompts)])
+            outs.append([(r.uid, r.out) for r in done])
+            if model is km:
+                n = eng.n_decode_calls
+                check(self._lm_counts() == {"flash_attention": 0,
+                                            "rmsnorm": 5 * n, "swiglu": 2 * n},
+                      f"lm_serve f32: decode launches {self._lm_counts()} "
+                      f"for {n} decode steps")
+        check(outs[0] == outs[1] and len(outs[0]) == 6
+              and all(len(o) == 8 for _, o in outs[0]),
+              "lm_serve f32: greedy tokens with kernels == plain")
+        res["f32_2_layers"] = {"prefill_logit_max_abs_err": err, "tol": tol,
+                               "tokens_identical": True,
+                               "requests": 6, "slots": 2}
+        del km, pm, lk, lp
+        torch.cuda.empty_cache()
+        # --- 2. full width and depth, bf16 -------------------------------
+        cfg = base.replace(attn_impl="flash")
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=self.dev).init(gen)
+        torch.cuda.synchronize()
+        res["init_s"] = time.perf_counter() - t0
+        res["params"] = model.param_count()
+        toks = rng.integers(0, vocab, (4, 4096))
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, prefill: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill({"tokens": toks})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        pre = self._lm_counts()
+        check(pre == {"flash_attention": 36, "rmsnorm": 73, "swiglu": 36},
+              f"lm_serve: prefill launches {pre} (36/73/36 expected)")
+        check(logits.shape == (4, vocab) and bool(torch.isfinite(logits).all())
+              and len(caches["seg_00"]) == 36
+              and caches["seg_00"][0]["k"].shape == (4, 4096, 8, 128),
+              "lm_serve: prefill logits finite, caches (4, 4096, 8, 128) x 36")
+        del caches
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again, caches = model.prefill({"tokens": toks})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del caches
+        prefill_s = statistics.median(times)
+        res["prefill"] = {"batch": 4, "seq": 4096, "first_call_s": first_s,
+                          "seconds": times, "median_s": prefill_s,
+                          "tokens_per_s": 4 * 4096 / prefill_s,
+                          "launches": pre,
+                          "repeat_bitwise": bool(torch.equal(again, logits)),
+                          "peak_memory_gb":
+                              torch.cuda.max_memory_allocated() / 1e9}
+        self.lm_launches["prefill"] = pre
+        # the main path, serving: counts from 0 just before, read just after
+        eng = ServeEngine(model, n_slots=4, cache_len=1024)
+        reqs = [Request(uid=i, prompt=rng.integers(0, vocab, 64),
+                        max_new=SERVE_MAX_NEW) for i in range(8)]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        served = self._lm_counts()
+        n = eng.n_decode_calls
+        check(served == {"flash_attention": 0, "rmsnorm": 73 * n,
+                         "swiglu": 36 * n},
+              f"lm_serve: engine launches {served} for {n} decode steps "
+              "(73/36 per step expected)")
+        check(len(done) == 8
+              and all(len(r.out) == SERVE_MAX_NEW for r in done)
+              and all(0 <= t < vocab for r in done for t in r.out),
+              f"lm_serve: 8 requests of {SERVE_MAX_NEW} tokens in the "
+              "vocabulary")
+        self.lm_launches["serve"] = served
+        steps = eng.step_seconds
+        new = sum(len(r.out) for r in done)
+        res["serve"] = {
+            "requests": 8, "prompt": 64, "max_new": SERVE_MAX_NEW, "slots": 4,
+            "cache_len": 1024, "seconds": run_s, "decode_calls": n,
+            "ticks": len(steps), "new_tokens": new,
+            "decode_steps_per_s": len(steps) / sum(steps),
+            "new_tokens_per_s_ticks": new / sum(steps),
+            "new_tokens_per_s_run": new / run_s,
+            "step_p50_ms": float(np.percentile(steps, 50)) * 1e3,
+            "step_p99_ms": float(np.percentile(steps, 99)) * 1e3,
+            "launches": served}
+        res["decode_idle"] = self._decode_idle(model, eng, steps)
+        # The decode path against prefill at full depth (bf16, checked):
+        # prefill(64) + decode(token 64) against prefill(65).
+        short = rng.integers(0, vocab, (1, 65))
+        _, c64 = model.prefill({"tokens": short[:, :64]})
+        l65, _ = model.prefill({"tokens": short})
+        pad = {seg: [{k: torch.cat([c[k], torch.zeros_like(c[k][:, :1])], 1)
+                      for k in c} for c in layers]
+               for seg, layers in c64.items()}
+        ld, _ = model.decode_step(pad, short[:, 64:65],
+                                  np.full((1,), 64, np.int64))
+        res["decode_vs_prefill_bf16"] = self._bf16_logits_agree(
+            "decode_step after prefill(64) vs prefill(65)", ld, l65)
+        # The kernels against the plain versions at full depth, bf16.
+        pm = build_model(cfg.replace(attn_impl="chunked"), device=self.dev,
+                         backend="plain")
+        pm.load_state_dict(model.state_dict())
+        toks = rng.integers(0, vocab, (2, 512))
+        lk, _ = model.prefill({"tokens": toks})
+        lp, _ = pm.prefill({"tokens": toks})
+        res["kernels_vs_plain_bf16"] = self._bf16_logits_agree(
+            "prefill (2, 512), kernels vs plain", lk, lp)
+        del pm
+        torch.cuda.empty_cache()
+        emit({"phase": "lm_serve", "arch": "qwen3-4b", "card": self.card,
+              **res})
+
+    def _bf16_logits_agree(self, case, got, want) -> dict:
+        """Full-depth bf16 logits of two routes agree within BF16_LOGIT_TOL
+        of max |want|."""
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        tol = BF16_LOGIT_TOL * scale
+        check(got.shape == want.shape and bool(self.torch.isfinite(got).all())
+              and err <= tol,
+              f"lm_serve bf16 {case}: max abs diff {err} > {tol}")
+        return {"case": case, "max_abs_diff": err, "logit_scale": scale,
+                "tol": tol, "argmax_equal_rows": int(
+                    (got.argmax(-1) == want.argmax(-1)).sum()),
+                "rows": int(got.shape[0])}
+
+    def _decode_idle(self, model, eng, steps) -> dict:
+        """Device busy and idle share over one warm decode step (4 slots),
+        from torch.profiler, against the step's unprofiled p50 (the
+        profiler slows the host)."""
+        torch = self.torch
+        import numpy as np
+        from torch.profiler import ProfilerActivity, profile
+        tok = np.zeros((eng.n_slots, 1), np.int64)
+        pos = np.full((eng.n_slots,), 100, np.int64)
+        model.decode_step(eng.caches, tok, pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decode_step(eng.caches, tok, pos)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events = _device_events(prof)
+        busy = sum(dt for _, dt, _ in events)
+        n_kernels = sum(count for _, _, count in events)
+        if busy <= 0:
+            return {"idle": "not measured (no device events)"}
+        p50 = float(np.percentile(steps, 50))
+        return {"device_busy_ms": busy / 1e3, "device_kernels": n_kernels,
+                "profiled_wall_ms": wall * 1e3, "unprofiled_step_p50_ms":
+                    p50 * 1e3,
+                "device_idle_share": max(0.0, 1 - busy / 1e6 / p50)}
+
     def kernel_rows(self) -> list[dict]:
         """One row per kernel: launches on its main path, largest error
         against its plain version, and its times at the shape its main
         path gives it (dpmeans_assign: the paper's propose shape; top-k:
-        the serving microbatch), with every timed shape under "shapes"."""
+        the serving microbatch; the language-model kernels: qwen3-4b's
+        prefill), with every timed shape under "shapes".  The language
+        model's launches are those of its prefill plus its engine run."""
         rows = []
         main_shape = {"dpmeans_assign": "paper", "topk_stream": "serve_flat",
-                      "topk_multiprobe_stream": "serve_multiprobe"}
+                      "topk_multiprobe_stream": "serve_multiprobe",
+                      "flash_attention": "prefill", "rmsnorm": "prefill",
+                      "swiglu": "prefill"}
         sources = {"dpmeans_assign": ("dpmeans_assign.cu",
                                       "src/repro/kernels/dpmeans_assign.py:86"),
                    "topk_stream": ("topk_stream.cu",
                                    "src/repro/kernels/topk_stream.py:123"),
                    "topk_multiprobe_stream": (
                        "topk_stream.cu",
-                       "src/repro/kernels/topk_stream.py:295")}
+                       "src/repro/kernels/topk_stream.py:295"),
+                   "flash_attention": (
+                       "flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:72"),
+                   "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25"),
+                   "swiglu": ("swiglu.cu", "src/repro/kernels/swiglu.py:24")}
         for name in KERNELS:
             src, replaces = sources[name]
+            launches = self.main_launches.get(name)
+            if name in ("flash_attention", "rmsnorm", "swiglu") \
+                    and self.lm_launches:
+                launches = sum(c[name] for c in self.lm_launches.values())
             row = {"name": name, "route": "cuda", "card": self.card,
                    "source": f"src/repro_torch/kernels/csrc/{src}",
-                   "replaces": replaces,
-                   "launches": self.main_launches[name],
+                   "replaces": replaces, "launches": launches,
                    "max_abs_err": self.max_abs_err[name]}
             if name == "dpmeans_assign":
                 row["launches_retrieval"] = self.retrieval_launches
+            if name in ("flash_attention", "rmsnorm", "swiglu"):
+                row["launches_by_path"] = {
+                    path: c[name] for path, c in self.lm_launches.items()}
             shapes = [t for t in self.timings if t["kernel"] == name]
             main = next((t for t in shapes
                          if t["shape"] == main_shape[name]), None)
@@ -1219,6 +1637,23 @@ class Smoke:
             row["shapes"] = shapes
             rows.append(row)
         return rows
+
+
+def _device_events(prof) -> list[tuple[str, float, int]]:
+    """(name, device microseconds, count) of each kind of work the device
+    ran in a profile: its kernels and copies only.  The host-side event
+    that launched a kernel reports the same device time as the kernel, so
+    summing over every event would count each kernel twice."""
+    from torch.autograd import DeviceType
+    out = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0)) or 0.0
+        if dt > 0:
+            out.append((ev.key, dt, ev.count))
+    return out
 
 
 def _perturbed(np, chunks, n: int, seed: int):

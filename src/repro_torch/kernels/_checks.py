@@ -1,0 +1,52 @@
+"""Input checks shared by the language-model kernel wrappers (`rmsnorm`,
+`swiglu`, `flash_attention`): the CUDA device, the element types the
+kernels are compiled for, the 16-byte alignment of their packed accesses,
+and the refusal of tensors that autograd would record (the kernels have no
+backward yet; the serving path runs under `torch.inference_mode()`)."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["DTYPE_CODES", "require_cuda", "require_no_grad", "aligned16",
+           "stream_of"]
+
+# The element types the kernels are compiled for, as their C code numbers them.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def require_cuda(name: str, t, device: torch.device | None = None,
+                 dtype: torch.dtype | None = None) -> None:
+    """`t` is a tensor on a CUDA device (that of `device` when given) of a
+    compiled element type (`dtype` when given); raises TypeError or
+    ValueError otherwise."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.device.type != "cuda" or (device is not None and t.device != device):
+        raise ValueError(f"{name} must lie on the CUDA device of the first "
+                         f"input, got {t.device}")
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype} like the first input, "
+                        f"got {t.dtype}")
+
+
+def require_no_grad(**tensors) -> None:
+    """Raises if autograd would record a call on any of the tensors."""
+    if not torch.is_grad_enabled():
+        return
+    for name, t in tensors.items():
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{name} requires a gradient; the kernel has no backward yet "
+                "(run under torch.inference_mode() or torch.no_grad())")
+
+
+def aligned16(*tensors) -> bool:
+    """Every tensor's first element is 16-byte aligned."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on t's device, as the int the C side takes."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,75 @@
+// 16-byte loads and stores between f32 or bf16 memory and f32 registers,
+// shared by the language-model kernels (rmsnorm.cu, swiglu.cu,
+// flash_attention.cu).  A 16-byte access is the widest one a thread can make
+// and keeps neighbouring threads on neighbouring addresses.  Callers check
+// the 16-byte alignment of every address they pass.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cstdint>
+
+namespace pack {
+
+// Elements of T in 16 bytes.
+template <typename T>
+struct Width {
+  static constexpr int N = 16 / sizeof(T);
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+// Round to nearest even, as torch's and XLA's casts to bf16 do.
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// 16 bytes at p (4 f32 or 8 bf16) as floats.
+__device__ __forceinline__ void load16(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void store16(float* p, const float* f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* f) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// 8 consecutive elements at p (32 bytes of f32, 16 of bf16) as floats.
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  load16(p, f);
+  load16(p + 4, f + 4);
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
+  load16(p, f);
+}
+
+}  // namespace pack

@@ -10,7 +10,8 @@ The device of the input decides, never a probe of the machine:
 There is no fallback: a CUDA tensor reaches the plain version only when
 `backend="plain"` is asked for.  The serving primitives (`serve_assign`,
 `serve_topk`, `serve_topk_multiprobe`) add the query-prefix mask of a
-padded bucket.  Each kernel has a plain-int launch count,
+padded bucket.  The language model's primitives (`flash_attention`,
+`rmsnorm`, `swiglu`) follow the same rule.  Each kernel has a plain-int launch count,
 raised by one where the kernel is launched and nowhere else, so a run can
 show that its main path went through the kernel.
 """
@@ -20,6 +21,12 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dpmeans_assign import dpmeans_assign as _dpmeans_assign
+from repro_torch.kernels.flash_attention import (
+    check_shapes as _flash_check_shapes,
+    flash_attention as _flash_attention,
+)
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+from repro_torch.kernels.swiglu import swiglu as _swiglu
 from repro_torch.kernels.topk_stream import (
     topk_multiprobe_stream as _topk_mp_stream,
     topk_stream as _topk_stream,
@@ -28,19 +35,24 @@ from repro_torch.kernels.topk_stream import (
 __all__ = ["assign", "pairwise_argmin", "serve_assign", "serve_topk",
            "serve_topk_multiprobe", "ASSIGN_LAUNCHES",
            "PAIRWISE_ARGMIN_LAUNCHES", "TOPK_LAUNCHES", "TOPK_MP_LAUNCHES",
-           "reset_launch_counts"]
+           "flash_attention", "rmsnorm", "swiglu", "FLASH_LAUNCHES",
+           "RMSNORM_LAUNCHES", "SWIGLU_LAUNCHES", "reset_launch_counts"]
 
 ASSIGN_LAUNCHES = 0
 PAIRWISE_ARGMIN_LAUNCHES = 0
 TOPK_LAUNCHES = 0
 TOPK_MP_LAUNCHES = 0
+FLASH_LAUNCHES = 0
+RMSNORM_LAUNCHES = 0
+SWIGLU_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
     global ASSIGN_LAUNCHES, PAIRWISE_ARGMIN_LAUNCHES, TOPK_LAUNCHES, \
-        TOPK_MP_LAUNCHES
+        TOPK_MP_LAUNCHES, FLASH_LAUNCHES, RMSNORM_LAUNCHES, SWIGLU_LAUNCHES
     ASSIGN_LAUNCHES = PAIRWISE_ARGMIN_LAUNCHES = 0
     TOPK_LAUNCHES = TOPK_MP_LAUNCHES = 0
+    FLASH_LAUNCHES = RMSNORM_LAUNCHES = SWIGLU_LAUNCHES = 0
 
 
 def _use_kernel(x: torch.Tensor, backend: str) -> bool:
@@ -200,3 +212,39 @@ def serve_topk_multiprobe(x, fine, fine_ids, fine_mask, cells, member,
         d2, idx = _ref.topk_multiprobe_ref(x, fine, fine_ids, fine_mask,
                                            cells, member, k)
     return _mask_queries(d2, idx, n_valid)
+
+
+def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
+                    backend: str = "auto"):
+    """GQA attention forward: q (B, H, S, Dh), k and v (B, Hkv, S, Dh) ->
+    (B, H, S, Dh) in q's dtype, f32 math, causal by default.  The JAX
+    wrapper's contract (H % Hkv == 0, S a multiple of min(128, S)) raises
+    ValueError on every backend."""
+    global FLASH_LAUNCHES
+    if _use_kernel(q, backend):
+        out = _flash_attention(q, k, v, causal=causal, scale=scale)
+        FLASH_LAUNCHES += 1
+        return out
+    _flash_check_shapes(q, k, v)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+
+
+def rmsnorm(x, weight, eps: float = 1e-6, backend: str = "auto"):
+    """(x * rsqrt(mean(x^2) + eps)) * weight over the last dim, f32 math,
+    in x's dtype."""
+    global RMSNORM_LAUNCHES
+    if _use_kernel(x, backend):
+        out = _rmsnorm(x, weight, eps=eps)
+        RMSNORM_LAUNCHES += 1
+        return out
+    return _ref.rmsnorm_ref(x, weight, eps=eps)
+
+
+def swiglu(gate, up, backend: str = "auto"):
+    """silu(gate) * up elementwise, f32 math, in gate's dtype."""
+    global SWIGLU_LAUNCHES
+    if _use_kernel(gate, backend):
+        out = _swiglu(gate, up)
+        SWIGLU_LAUNCHES += 1
+        return out
+    return _ref.swiglu_ref(gate, up)

@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["assign_ref", "pairwise_argmin_ref", "topk_ref", "topk_merge_ref",
-           "topk_multiprobe_ref", "TOPK_SENTINEL"]
+           "topk_multiprobe_ref", "TOPK_SENTINEL", "flash_attention_ref",
+           "rmsnorm_ref", "swiglu_ref"]
 
 # Invalid-candidate id inside the top-k selection: larger than any real
 # center index, so the lexicographic (d2, id) order puts exhausted slots
@@ -135,3 +136,41 @@ def topk_multiprobe_ref(x: torch.Tensor, fine: torch.Tensor,
     ok = gmask[None, :] & member[:, :, None].expand(b, u, s).reshape(b, u * s)
     d2 = torch.where(ok, d2, torch.inf)
     return _select(d2, gids.expand(x.shape[0], -1), k)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, scale: float | None = None):
+    """Reference attention.  q (B,H,S,Dh); k,v (B,Hkv,S,Dh); GQA broadcast
+    (query head h reads kv head h // (H // Hkv)).  f32 math, the scale
+    applied to the logits, -inf above the diagonal when causal, output in
+    q's dtype."""
+    b, h, s, dh = q.shape
+    g = h // k.shape[1]
+    kq = torch.repeat_interleave(k, g, dim=1)
+    vq = torch.repeat_interleave(v, g, dim=1)
+    if scale is None:
+        scale = dh ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                          kq.to(torch.float32)) * scale
+    if causal:
+        qi = torch.arange(s, device=q.device)[:, None]
+        ki = torch.arange(s, device=q.device)[None, :]
+        logits = torch.where(ki <= qi, logits, -torch.inf)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", w, vq.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
+    """(xf * rsqrt(mean(xf^2) + eps)) * w over the last dim, f32 math, cast
+    back to x's dtype."""
+    xf = x.to(torch.float32)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(ms + eps))
+            * weight.to(torch.float32)).to(x.dtype)
+
+
+def swiglu_ref(gate: torch.Tensor, up: torch.Tensor):
+    """silu(gate) * up, f32 math, cast back to gate's dtype."""
+    gf = gate.to(torch.float32)
+    return (torch.nn.functional.silu(gf) * up.to(torch.float32)).to(gate.dtype)

@@ -1,0 +1,60 @@
+"""Wrapper of the hand-written CUDA kernel `csrc/swiglu.cu`.
+
+The port of the Pallas TPU kernel `repro/kernels/swiglu.py`:
+`silu(gate) * up` elementwise, f32 math, output in gate's dtype.  The
+source file says what bounds the kernel on an H100 and what its design
+does about it.
+
+The wrapper checks every input, allocates the output with `torch.empty`,
+and launches on PyTorch's current stream without synchronising.  It takes
+CUDA tensors only: the plain version for CPU tensors is `ref.swiglu_ref`,
+and the choice between them is made by `ops.swiglu` from the tensor's
+device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._checks import (
+    DTYPE_CODES, aligned16, require_cuda, require_no_grad, stream_of,
+)
+
+__all__ = ["swiglu"]
+
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = _build.load("swiglu").swiglu_fwd
+        fn.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor):
+    """Launch the kernel.  gate and up of one shape and dtype (float32 or
+    bfloat16), contiguous, on one CUDA device.  Returns a new tensor shaped
+    and typed like gate.  Raises on any other input, on a tensor that needs
+    a gradient, and when the launch fails."""
+    require_cuda("gate", gate)
+    require_cuda("up", up, gate.device, gate.dtype)
+    require_no_grad(gate=gate, up=up)
+    if gate.shape != up.shape:
+        raise ValueError(f"gate {tuple(gate.shape)} and up {tuple(up.shape)} "
+                         "must have one shape")
+    if not (gate.is_contiguous() and up.is_contiguous()):
+        raise ValueError("gate and up must be contiguous")
+    out = torch.empty_like(gate)
+    err = _fn()(gate.data_ptr(), up.data_ptr(), out.data_ptr(),
+                DTYPE_CODES[gate.dtype], gate.numel(),
+                int(aligned16(gate, up, out)), stream_of(gate))
+    if err != 0:
+        raise RuntimeError(f"swiglu launch failed: CUDA error {err}")
+    return out

@@ -1,0 +1,161 @@
+"""GQA attention of the language model: prefill (chunked, or the flash
+kernel) and one-token decode over a slot KV cache.
+
+The port of `repro/models/attention.py` for one card.  `attention_train`
+routes to `ops.flash_attention` when `cfg.attn_impl == "flash"` and the
+activations are on a CUDA device, the counterpart of the JAX package's
+`ops.on_tpu()` test; otherwise it runs the chunked attention, as the JAX
+package does off the TPU.  Decode attention stays plain torch, as it is
+plain jnp in the JAX package.  Decode mode "cp" (context-parallel) needs a
+mesh; without one it runs as "tp", as in the JAX package.  Meshes wait for
+the multi-card slice and cross-attention for the encoder-decoder slice.
+
+Unlike the JAX package, `attention_decode` writes the new key and value
+into the cache tensors in place (and returns the same dict).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.models.layers import apply_rope, dense_init, rope_freqs
+
+__all__ = ["init_attention", "attention_train", "attention_decode",
+           "init_kv_cache"]
+
+NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg, dtype
+                   ) -> dict[str, torch.Tensor]:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {"wq": dense_init(gen, d, h * hd, dtype),
+         "wk": dense_init(gen, d, hkv * hd, dtype),
+         "wv": dense_init(gen, d, hkv * hd, dtype),
+         "wo": dense_init(gen, h * hd, d, dtype, scale=(h * hd) ** -0.5)}
+    if cfg.qk_norm:
+        p["qn"] = torch.ones((hd,), dtype=dtype, device=gen.device)
+        p["kn"] = torch.ones((hd,), dtype=dtype, device=gen.device)
+    return p
+
+
+def _qk_norm(x, w, eps):
+    # Plain torch on every device, as in the JAX package (no kernel).
+    return ref.rmsnorm_ref(x, w, eps)
+
+
+def _project_qkv(p, x, cfg, positions):
+    """x (B,S,D) -> q (B,S,H,hd), k,v (B,S,Hkv,hd), qk-normed + roped."""
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
+    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = _qk_norm(q, p["qn"], cfg.norm_eps)
+        k = _qk_norm(k, p["kn"], cfg.norm_eps)
+    cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _gqa_logits(q, k, scale):
+    """q (B,c,H,hd), k (B,S,Hkv,hd) -> logits (B,Hkv,g,c,S) in f32."""
+    b, c, h, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, c, hkv, h // hkv, hd)
+    return torch.einsum("bchgd,bshd->bhgcs", qg.to(torch.float32),
+                        k.to(torch.float32)) * scale
+
+
+def _gqa_out(w, v):
+    """w (B,Hkv,g,c,S), v (B,S,Hkv,hd) -> (B,c,H,hd) f32."""
+    b, hkv, g, c, s = w.shape
+    out = torch.einsum("bhgcs,bshd->bchgd", w, v.to(torch.float32))
+    return out.reshape(b, c, hkv * g, -1)
+
+
+def _chunked_causal_attention(q, k, v, cfg, q_offset: int = 0):
+    """Memory-bounded causal attention, one query chunk at a time: peak
+    logits are (B, Hkv, g, chunk, S) f32 instead of (.., S, S)."""
+    b, s, h, hd = q.shape
+    scale = hd ** -0.5
+    c = min(cfg.attn_chunk, s)
+    if s % c:
+        c = s
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    outs = []
+    for i in range(s // c):
+        logits = _gqa_logits(q[:, i * c:(i + 1) * c], k, scale)
+        q_pos = q_offset + i * c + torch.arange(c, device=q.device)
+        mask = k_pos[None, :] <= q_pos[:, None]
+        logits = torch.where(mask, logits, NEG_INF)
+        outs.append(_gqa_out(torch.softmax(logits, dim=-1), v))
+    return torch.cat(outs, 1).to(q.dtype)
+
+
+def attention_train(p, x, cfg, positions, backend: str = "auto"):
+    """Full-sequence causal self-attention (prefill).
+
+    Returns (out (B,S,D), (k, v)), the (B,S,Hkv,hd) prefill cache
+    contribution.
+    """
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    if cfg.attn_impl == "flash" and x.device.type == "cuda":
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True,
+                                backend=backend).transpose(1, 2)
+    else:
+        o = _chunked_causal_attention(q, k, v, cfg)
+    return o.reshape(b, s, -1) @ p["wo"], (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg, batch: int, cache_len: int, dtype,
+                  device) -> dict[str, torch.Tensor]:
+    """One layer's KV cache buffers (B, S, Hkv, hd)."""
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _update_cache(cache_arr, new, pos):
+    """Write new (B,1,Hkv,hd) at per-example positions pos (B,), in place.
+    The JAX package's `dynamic_update_slice` clamps a position past the
+    end; an index write does not, so positions must lie inside the cache
+    (the serving engine keeps them below cache_len - 1 and checks it)."""
+    rows = torch.arange(cache_arr.shape[0], device=cache_arr.device)
+    cache_arr[rows, pos.long()] = new[:, 0].to(cache_arr.dtype)
+    return cache_arr
+
+
+def _decode_attend(q, ck, cv, pos, scale):
+    """q (B,1,H,hd); ck/cv (B,S,Hkv,hd); keys at k_pos <= pos[b]."""
+    logits = _gqa_logits(q, ck, scale)                       # (B,Hkv,g,1,S)
+    k_pos = torch.arange(ck.shape[1], device=q.device)
+    mask = k_pos[None, :] <= pos[:, None]                    # (B,S)
+    logits = torch.where(mask[:, None, None, None, :], logits, NEG_INF)
+    return _gqa_out(torch.softmax(logits, dim=-1), cv)       # (B,1,H,hd) f32
+
+
+def attention_decode(p, x, cfg, cache, pos, mode: str = "tp", mesh=None):
+    """One-token decode step.  x (B,1,D), pos (B,) current positions.
+
+    Returns (out (B,1,D), cache) with the cache written in place.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded decode waits for the multi-card slice (ROADMAP.md "
+            "queue 1, item 11: cp decode and sharding)")
+    if mode not in ("tp", "cp"):
+        raise ValueError(f"unknown decode mode {mode!r}")
+    b = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, x, cfg,
+                                   pos[:, None].to(torch.float32))
+    ck = _update_cache(cache["k"], k_new, pos)
+    cv = _update_cache(cache["v"], v_new, pos)
+    o = _decode_attend(q, ck, cv, pos, cfg.hd ** -0.5).to(x.dtype)
+    return o.reshape(b, 1, -1) @ p["wo"], cache

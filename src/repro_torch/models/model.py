@@ -1,0 +1,178 @@
+"""The language model: init, prefill and one-token decode on one device.
+
+The port of `repro/models/model.py` for the forward (serving) path.
+`Model` is an `nn.Module` holding its parameters under the JAX package's
+names:
+
+  tok_embed (V, D), final_norm (D,), lm_head (D, V) unless tied,
+  segments.seg_00 = [per-layer ParameterDict]  (the JAX package stacks the
+                                                layers and scans them)
+
+Caches mirror the segments: {"seg_00": [{"k", "v"} per layer]}, each
+(B, S, Hkv, hd); `convert.lm_caches_to_numpy` gives them in the JAX
+layout.  `decode_step` writes the caches in place.  `prefill` and
+`decode_step` run under `torch.inference_mode()`: this slice serves and
+does not train (the loss waits for the training slice).  `backend` is
+the kernels' dispatch ("auto": a CUDA tensor launches the kernels;
+"plain": the plain versions, for comparisons).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch._device import resolve_device
+from repro_torch.models.layers import embed_init, rmsnorm
+from repro_torch.models.transformer import (
+    block_shapes, init_block, init_block_cache, require_ported,
+    run_stack_decode, run_stack_train, segments_for,
+)
+
+__all__ = ["Model", "build_model"]
+
+
+def _seg_key(i: int) -> str:
+    return f"seg_{i:02d}"
+
+
+class Model(nn.Module):
+    """A language model of one `ArchConfig` on one device.
+
+    The constructor allocates the parameters uninitialised, in the config's
+    dtype, directly on `device` ("cuda" by default; "cpu"; or "meta" to
+    count parameters without memory); `init` fills them from a
+    `torch.Generator` on that device, and `convert.lm_params_from_numpy`
+    from a JAX parameter tree.
+    """
+
+    def __init__(self, cfg, device: str | torch.device = "cuda",
+                 backend: str = "auto"):
+        super().__init__()
+        if cfg.frontend:
+            raise NotImplementedError(
+                "modality frontends and the encoder-decoder are not ported "
+                "yet (ROADMAP.md queue 1, item 11)")
+        segs = segments_for(cfg)
+        for kind, _, _ in segs:
+            require_ported(kind)
+        dev = torch.device(device)
+        if dev.type != "meta":
+            dev = resolve_device(dev)
+        self.cfg = cfg
+        self.backend = backend
+        dt = getattr(torch, cfg.dtype)
+
+        def empty(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=dev),
+                                requires_grad=False)
+        self.tok_embed = empty(cfg.vocab, cfg.d_model)
+        self.final_norm = empty(cfg.d_model)
+        self.lm_head = None if cfg.tie_embeddings else empty(cfg.d_model,
+                                                             cfg.vocab)
+        self.segments = nn.ModuleDict({
+            _seg_key(i): nn.ModuleList([
+                nn.ParameterDict({n: empty(*s) for n, s in
+                                  block_shapes(cfg, kind).items()})
+                for _ in range(count)])
+            for i, (kind, count, _) in enumerate(segs)})
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embed.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.tok_embed.dtype
+
+    # ------------------------------------------------------------------ init
+    @torch.no_grad()
+    def init(self, gen: torch.Generator) -> "Model":
+        """Fill every parameter from `gen` (a generator on the model's
+        device) with the JAX package's distributions: normal embeddings
+        and projections scaled by fan-in^-0.5, norms at one.  Each tensor is
+        drawn in f32 on the device and cast; returns self."""
+        cfg, dt = self.cfg, self.dtype
+        self.tok_embed.copy_(embed_init(gen, cfg.vocab, cfg.d_model, dt))
+        self.final_norm.fill_(1)
+        if self.lm_head is not None:
+            self.lm_head.copy_(
+                embed_init(gen, cfg.vocab, cfg.d_model, dt).T)
+        for i, (kind, _, _) in enumerate(segments_for(cfg)):
+            for layer in self.segments[_seg_key(i)]:
+                for name, t in init_block(gen, cfg, kind, dt).items():
+                    layer[name].copy_(t)
+        return self
+
+    # --------------------------------------------------------------- helpers
+    def _ids(self, a) -> torch.Tensor:
+        """Token ids or positions (numpy or tensor) as int64 on the device."""
+        if isinstance(a, np.ndarray):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        return torch.as_tensor(a, device=self.device).long()
+
+    def _lm_head(self) -> torch.Tensor:
+        return self.tok_embed.T if self.lm_head is None else self.lm_head
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(x.contiguous(), self.final_norm, self.cfg.norm_eps,
+                    self.backend)
+        return (h @ self._lm_head())[:, 0].to(torch.float32)
+
+    # --------------------------------------------------------------- prefill
+    @torch.inference_mode()
+    def prefill(self, batch: dict):
+        """batch["tokens"] (B, S) -> (last-token logits (B, V) f32,
+        caches {"seg_00": [{"k", "v"} (B, S, Hkv, hd) per layer]})."""
+        cfg = self.cfg
+        toks = self._ids(batch["tokens"])
+        x = self.tok_embed[toks]
+        positions = torch.arange(x.shape[1], dtype=torch.float32,
+                                 device=self.device)
+        caches = {}
+        for i, (kind, _, _) in enumerate(segments_for(cfg)):
+            x, caches[_seg_key(i)] = run_stack_train(
+                self.segments[_seg_key(i)], x, cfg, kind, positions,
+                want_cache=True, backend=self.backend)
+        return self._logits(x[:, -1:]), caches
+
+    # ----------------------------------------------------------------- cache
+    @torch.inference_mode()
+    def init_cache(self, batch: int, cache_len: int) -> dict:
+        """Zeroed slot caches: {"seg_00": [{"k", "v"} (batch, cache_len,
+        Hkv, hd) per layer]} in the model's dtype and device."""
+        return {_seg_key(i): [init_block_cache(self.cfg, kind, batch,
+                                               cache_len, self.dtype,
+                                               self.device)
+                              for _ in range(count)]
+                for i, (kind, count, _) in
+                enumerate(segments_for(self.cfg))}
+
+    # ----------------------------------------------------------------- decode
+    @torch.inference_mode()
+    def decode_step(self, caches: dict, tokens, pos,
+                    decode_mode: str = "tp"):
+        """tokens (B, 1), pos (B,) (numpy or tensors of ints) -> (logits
+        (B, V) f32, caches), the caches written in place at `pos`."""
+        cfg = self.cfg
+        x = self.tok_embed[self._ids(tokens)]
+        pos = self._ids(pos)
+        for i, (kind, _, _) in enumerate(segments_for(cfg)):
+            x, _ = run_stack_decode(self.segments[_seg_key(i)], x, cfg, kind,
+                                    caches[_seg_key(i)], pos,
+                                    decode_mode=decode_mode,
+                                    backend=self.backend)
+        return self._logits(x), caches
+
+    # ------------------------------------------------------------- param count
+    def param_count(self) -> int:
+        return sum(math.prod(p.shape) for p in self.parameters())
+
+
+def build_model(cfg, device: str | torch.device = "cuda",
+                backend: str = "auto") -> Model:
+    """An uninitialised `Model` of `cfg` on `device`; fill it with
+    `.init(generator)` or `convert.lm_params_from_numpy`."""
+    return Model(cfg, device=device, backend=backend)

@@ -3,7 +3,8 @@
 An AST scan of every module of `src/repro_torch/` and of `chip_smoke.py`,
 and a subprocess in which `jax` and `repro` cannot be imported at all that
 imports the port, runs a tiny pass on the CPU, publishes it and serves one
-top-k query from it.
+top-k query from it, then builds `reduced(qwen3-4b)` on the CPU and
+serves two requests through the language model's `ServeEngine`.
 """
 import ast
 import os
@@ -58,6 +59,15 @@ occ = occ_dp_means(x, 4.0, 64, k_max=64, max_iters=2, device="cpu")
 assert 1 <= int(res.pool.count) < 64 and occ.z.shape == (300,)
 top = ClusterService(store, probes=1).topk(x[:5], k=2)
 assert top.labels.shape == (5, 2) and top.version == 1
+import torch
+from repro_torch.configs import get_arch, reduced
+from repro_torch.models import build_model
+from repro_torch.serving.engine import Request, ServeEngine
+cfg = reduced(get_arch("qwen3-4b")).replace(dtype="float32")
+lm = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+done = ServeEngine(lm, n_slots=2, cache_len=16).run(
+    [Request(uid=i, prompt=np.arange(3) + i, max_new=2) for i in range(2)])
+assert [len(r.out) for r in done] == [2, 2]
 assert not _build._LIBS   # the CPU path never builds or loads a kernel
 print("OK", int(res.pool.count))
 """
