@@ -1219,10 +1219,11 @@ class Smoke:
         return out
 
     # -------------------------------------------------- language model
-    def _lm_agree(self, kernel, case, got, want, tol_f32=None):
+    def _lm_agree(self, kernel, case, got, want, quiet=False):
         """A language-model kernel's output against its plain version's on
         the same inputs: f32 within LM_TOL_F32 * max(1, max |plain|), bf16
-        within one bf16 ulp at max |plain|."""
+        within one bf16 ulp at max |plain|.  Returns (err, tol); `quiet`
+        leaves the JSON line to the caller."""
         torch = self.torch
         torch.cuda.synchronize()
         check(got.shape == want.shape and got.dtype == want.dtype,
@@ -1236,17 +1237,22 @@ class Smoke:
             tol = 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
         check(err <= tol, f"{kernel} {case}: max abs err {err} > {tol}")
         self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
-        emit({"phase": "lm_kernels", "kernel": kernel, "case": case,
-              "dtype": str(got.dtype).replace("torch.", ""),
-              "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
-              "tol": tol})
+        if not quiet:
+            emit({"phase": "lm_kernels", "kernel": kernel, "case": case,
+                  "dtype": str(got.dtype).replace("torch.", ""),
+                  "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
+                  "tol": tol})
+        return err, tol
 
     def lm_kernels(self):
         """flash_attention, rmsnorm and swiglu against their plain versions
         (f32 and bf16; GQA groups 1/4/8, causal and not, S = 128, 4096 and
-        100), what their wrappers refuse, and their times at the qwen3-4b
-        serving shapes beside the bound, the plain version and the library
-        call."""
+        100), the bf16 tensor-core flash kernel over every head dim (the
+        sweep of `_flash_sweep`), both rmsnorm kernels at the dense widths,
+        the compiled code (ptxas registers and spills; HGMMA and UTMALDG in
+        the flash library's SASS), what their wrappers refuse, and their
+        times at the qwen3-4b serving shapes beside the bound, the plain
+        version and the library call (with the SDPA backend named)."""
         torch = self.torch
         from repro_torch.kernels import ops, ref
         from repro_torch.kernels.flash_attention import flash_attention
@@ -1327,14 +1333,188 @@ class Smoke:
         emit({"phase": "lm_kernels", "raises": True,
               "max_abs_err": {n: self.max_abs_err[n] for n in
                               ("flash_attention", "rmsnorm", "swiglu")}})
+        self._flash_sweep(randn)
+        self._rmsnorm_kernels(randn)
+        self._compiled_code()
         self._time_lm_kernels(randn)
+
+    def _flash_sweep(self, randn):
+        """The bf16 tensor-core flash kernel against its plain version, each
+        case within one bf16 ulp at the output's largest magnitude: every
+        Dh of HEAD_DIMS, causal and full, GQA groups 1 and 4, S = 16, 48,
+        128 and 384 (below, at and over one 128-row tile), contiguous
+        inputs and transposed (B, S, H, Dh) views; then S = 4096 at Dh 128.
+        One line per Dh with its worst case."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
+        bf16 = torch.bfloat16
+
+        def case(dh, causal, group, s, layout, b=2, h=4, tight=False):
+            hkv = h // group
+            if layout == "contiguous":
+                q, k, v = (randn((b, h, s, dh), bf16),
+                           randn((b, hkv, s, dh), bf16),
+                           randn((b, hkv, s, dh), bf16))
+            else:
+                q, k, v = (randn((b, s, h, dh), bf16).transpose(1, 2),
+                           randn((b, s, hkv, dh), bf16).transpose(1, 2),
+                           randn((b, s, hkv, dh), bf16).transpose(1, 2))
+            name = f"bf16 Dh{dh} S{s} g{group} causal={causal} {layout}"
+            got = flash_attention(q, k, v, causal)
+            want = ref.flash_attention_ref(q, k, v, causal)
+            err, tol = self._lm_agree("flash_attention", name, got, want,
+                                      quiet=True)
+            if tight:
+                tights.append(self._flash_tight(name, q, k, v, causal, got,
+                                                want))
+            return err / tol, name
+
+        with torch.inference_mode():
+            n = 0
+            for dh in HEAD_DIMS:
+                worst = (0.0, "")
+                for causal in (True, False):
+                    for group in (1, 4):
+                        for s in (16, 48, 128, 384):
+                            for layout in ("contiguous", "transposed"):
+                                worst = max(worst, case(dh, causal, group, s,
+                                                        layout))
+                                n += 1
+                emit({"phase": "lm_kernels", "kernel": "flash_attention",
+                      "sweep_dh": dh, "cases": 32,
+                      "worst_err_over_tol": worst[0], "worst_case": worst[1]})
+            worst = (0.0, "")
+            tights = []
+            for causal in (True, False):
+                for group in (1, 4):
+                    for layout in ("contiguous", "transposed"):
+                        worst = max(worst, case(128, causal, group, 4096,
+                                                layout, b=1, h=8, tight=True))
+                        n += 1
+            emit({"phase": "lm_kernels", "kernel": "flash_attention",
+                  "sweep_dh": 128, "s": 4096, "cases": 8,
+                  "worst_err_over_tol": worst[0], "worst_case": worst[1],
+                  "sweep_cases": n,
+                  "worst_row_err_over_row_ulp": max(
+                      t["row_err_over_row_ulp"] for t in tights),
+                  "worst_rel_err_over_control": max(
+                      t["rel_err"] / t["control_rel_err"] for t in tights),
+                  "tight": tights})
+
+    def _flash_tight(self, case, q, k, v, causal, got, want) -> dict:
+        """Two readings of bf16 flash at long S, beside `_lm_agree`'s bar
+        (one bf16 ulp at the whole output's largest magnitude), which at
+        S = 4096 causal is about as large as the late rows' values: those
+        rows average thousands of keys.  Each must hold:
+          * every output row within one bf16 ulp at that row's own largest
+            |plain| value;
+          * the relative error ||got - plain|| / ||plain|| at most twice a
+            control's: the plain version with P rounded to bf16 before P·V
+            (the kernel's one arithmetic difference), whose error is what
+            that rounding alone costs."""
+        torch = self.torch
+        w = want.float()
+        d = got.float() - w
+        row_max = w.abs().amax(-1)
+        row_ulp = torch.exp2(torch.floor(torch.log2(
+            row_max.clamp_min(1e-30))) - 7)
+        row_ratio = float((d.abs().amax(-1) / row_ulp).max())
+        del d
+        rel = float(torch.linalg.vector_norm(got.float() - w)
+                    / torch.linalg.vector_norm(w))
+        ctrl = _flash_bf16_p(torch, q, k, v, causal)
+        rel_c = float(torch.linalg.vector_norm(ctrl.float() - w)
+                      / torch.linalg.vector_norm(w))
+        del ctrl, w
+        check(row_ratio <= 1.0,
+              f"flash_attention {case}: a row is {row_ratio} of one bf16 ulp "
+              "at its own largest value")
+        check(rel <= 2.0 * rel_c,
+              f"flash_attention {case}: relative error {rel} > twice the "
+              f"bf16-P control's {rel_c}")
+        return {"case": case, "row_err_over_row_ulp": row_ratio,
+                "rel_err": rel, "control_rel_err": rel_c}
+
+    def _rmsnorm_kernels(self, randn):
+        """Both rmsnorm kernels against the plain version at the dense
+        widths the one-read kernel is compiled for and at one it is not
+        (1000), f32 and bf16, 333 rows, with the kernel each launch reports
+        it ran; then both kernels timed at every dense width, (16384, D)
+        and (4, D), where the wrapper's choice is read against the faster.
+        The two-pass kernel is reached at the dense widths through the
+        wrapper's private hook `_two_pass`."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.rmsnorm import (
+            ONE_READ_WIDTHS, _two_pass, one_read_packs, rmsnorm_launch)
+        with torch.inference_mode():
+            for dt in (torch.float32, torch.bfloat16):
+                tag = "f32" if dt == torch.float32 else "bf16"
+                for d in ONE_READ_WIDTHS + (1000,):
+                    x, w = randn((333, d), dt), randn((d,), dt)
+                    want = ref.rmsnorm_ref(x, w, 1e-6)
+                    out, packs = rmsnorm_launch(x, w, 1e-6)
+                    check(packs == one_read_packs(d, x.element_size(), True),
+                          f"rmsnorm: width {d} {tag} launched the kernel of "
+                          f"{packs} packs a lane")
+                    kind = f"one-read ({packs} packs a lane)" if packs \
+                        else "two-pass"
+                    self._lm_agree("rmsnorm", f"{tag} (333, {d}) {kind}",
+                                   out, want)
+                    if packs:
+                        self._lm_agree("rmsnorm",
+                                       f"{tag} (333, {d}) two-pass",
+                                       _two_pass(x, w, 1e-6), want)
+            rows = []
+            for dt in (torch.float32, torch.bfloat16):
+                for d in ONE_READ_WIDTHS:
+                    for n in (16384, 4):
+                        x, w = randn((n, d), dt), randn((d,), dt)
+                        chosen = rmsnorm_launch(x, w, 1e-6)[1]
+                        one = _queued_ms(torch, lambda: rmsnorm_launch(
+                            x, w, 1e-6))[0]
+                        two = _queued_ms(torch, lambda: _two_pass(
+                            x, w, 1e-6))[0]
+                        rows.append({
+                            "dtype": str(dt).replace("torch.", ""),
+                            "x": [n, d], "chosen": "one-read" if chosen
+                            else "two-pass", "one_read_ms": one,
+                            "two_pass_ms": two,
+                            "bound_ms": x.element_size() * (2 * x.numel() + d)
+                            / PEAK_HBM_BYTES * 1e3})
+        emit({"phase": "lm_kernels", "kernel": "rmsnorm",
+              "one_read_vs_two_pass": rows})
+
+    def _compiled_code(self):
+        """ptxas's registers and spills for every kernel of the flash and
+        rmsnorm libraries (from the build log), and the flash library's
+        SASS: the tensor-core kernel must contain wgmma (HGMMA) and TMA
+        loads (UTMALDG), else the phase fails."""
+        from repro_torch.kernels import _build
+        paths = _build.build_all(["flash_attention", "rmsnorm"])
+        res = {}
+        for name in ("flash_attention", "rmsnorm"):
+            res[name] = _ptxas_summary(
+                _build.BUILD_LOG.get(name, {}).get("ptxas", ""))
+        cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                                 "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(paths["flash_attention"])],
+                              capture_output=True, text=True, timeout=300)
+        check(sass.returncode == 0,
+              f"cuobjdump -sass failed: {sass.stderr.strip()[:500]}")
+        counts = {op: sass.stdout.count(op) for op in ("HGMMA", "UTMALDG")}
+        check(all(counts.values()),
+              f"flash_attention SASS lacks wgmma or TMA loads: {counts}")
+        emit({"phase": "lm_kernels", "ptxas": res, "flash_sass": counts})
 
     def _time_lm_kernels(self, randn):
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels import ref
         from repro_torch.kernels.flash_attention import flash_attention
-        from repro_torch.kernels.rmsnorm import rmsnorm
+        from repro_torch.kernels.rmsnorm import _two_pass, rmsnorm
         from repro_torch.kernels.swiglu import swiglu
         bf16 = torch.bfloat16
         with torch.inference_mode():
@@ -1345,10 +1525,13 @@ class Smoke:
             k = randn((b, s, hkv, dh), bf16).transpose(1, 2)
             v = randn((b, s, hkv, dh), bf16).transpose(1, 2)
             want = ref.flash_attention_ref(q, k, v)
-            self._lm_agree("flash_attention",
-                           f"bf16 prefill {list(q.shape)} / {list(k.shape)} "
-                           "transposed views", flash_attention(q, k, v), want)
-            del want
+            got = flash_attention(q, k, v)
+            case = (f"bf16 prefill {list(q.shape)} / {list(k.shape)} "
+                    "transposed views")
+            self._lm_agree("flash_attention", case, got, want)
+            emit({"phase": "lm_kernels", "kernel": "flash_attention",
+                  **self._flash_tight(case, q, k, v, True, got, want)})
+            del want, got
             torch.cuda.empty_cache()
             flops = 2.0 * s * s * dh * b * h     # both products, causal half
             self._time_kernel(
@@ -1360,18 +1543,25 @@ class Smoke:
                 library=lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True),
                 q=list(q.shape), kv=list(k.shape), dtype="bfloat16",
-                causal=True, bound_ms_f32_cores=flops / PEAK_F32_FLOPS * 1e3)
+                causal=True, bound_ms_f32_cores=flops / PEAK_F32_FLOPS * 1e3,
+                kernel_design="wgmma + TMA (bf16 tensor cores)",
+                sdpa=self._sdpa_backends(q, k, v))
             del q, k, v
             torch.cuda.empty_cache()
             for shape, rows in (("prefill", 16384), ("decode", 4)):
                 x, w = randn((rows, 2560), bf16), randn((2560,), bf16)
-                self._time_kernel(
-                    "rmsnorm", shape, lambda: rmsnorm(x, w, 1e-6),
-                    lambda: ref.rmsnorm_ref(x, w, 1e-6),
-                    flops=4.0 * x.numel(),
-                    nbytes=2.0 * (2 * x.numel() + w.numel()),
-                    library=lambda: F.rms_norm(x, (2560,), w, 1e-6),
-                    x=list(x.shape), dtype="bfloat16")
+                for tag, two_pass in (("", False), (" two-pass", True)):
+                    self._time_kernel(
+                        "rmsnorm", shape + tag,
+                        (lambda: _two_pass(x, w, 1e-6)) if two_pass
+                        else (lambda: rmsnorm(x, w, 1e-6)),
+                        lambda: ref.rmsnorm_ref(x, w, 1e-6),
+                        flops=4.0 * x.numel(),
+                        nbytes=2.0 * (2 * x.numel() + w.numel()),
+                        library=lambda: F.rms_norm(x, (2560,), w, 1e-6),
+                        x=list(x.shape), dtype="bfloat16",
+                        kernel_design="two passes" if two_pass
+                        else "one read")
                 a, u = randn((rows, 9728), bf16, 3.0), randn((rows, 9728), bf16)
                 self._time_kernel(
                     "swiglu", shape, lambda: swiglu(a, u),
@@ -1379,10 +1569,41 @@ class Smoke:
                     nbytes=2.0 * 3 * a.numel(), gate=list(a.shape),
                     dtype="bfloat16")
 
+    def _sdpa_backends(self, q, k, v) -> dict:
+        """The SDPA yardstick named: the backend PyTorch's dispatcher picks
+        for the default call (`torch._fused_sdp_choice`, whose time is
+        `library_ms`), and the call's time under `sdpa_kernel` for each
+        backend that takes these inputs."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        def call():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        choice = SDPBackend(int(torch._fused_sdp_choice(
+            q, k, v, is_causal=True, enable_gqa=True)))
+        names = {SDPBackend.CUDNN_ATTENTION: "cudnn",
+                 SDPBackend.FLASH_ATTENTION: "flash",
+                 SDPBackend.EFFICIENT_ATTENTION: "efficient",
+                 SDPBackend.MATH: "math"}
+        res = {"default_backend": names.get(choice, choice.name)}
+        for name, be in (("cudnn", SDPBackend.CUDNN_ATTENTION),
+                         ("flash", SDPBackend.FLASH_ATTENTION),
+                         ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+            try:
+                with sdpa_kernel(be):
+                    res[f"{name}_ms"] = _queued_ms(torch, call)[0]
+            except RuntimeError as e:
+                res[f"{name}_ms"] = None
+                res[f"{name}_unavailable"] = str(e).splitlines()[0][:200]
+        return res
+
     def _lm_counts(self):
         from repro_torch.kernels import ops
         return {"flash_attention": ops.FLASH_LAUNCHES,
                 "rmsnorm": ops.RMSNORM_LAUNCHES,
+                "rmsnorm_one_read": ops.RMSNORM_ONE_READ_LAUNCHES,
                 "swiglu": ops.SWIGLU_LAUNCHES}
 
     def lm_serve(self):
@@ -1417,7 +1638,8 @@ class Smoke:
         counts = self._lm_counts()
         lp, _ = pm.prefill({"tokens": toks})
         check(self._lm_counts() == counts == {
-            "flash_attention": 2, "rmsnorm": 5, "swiglu": 2},
+            "flash_attention": 2, "rmsnorm": 5, "rmsnorm_one_read": 5,
+            "swiglu": 2},
             f"lm_serve f32: launches {counts} for a 2-layer prefill, none "
             "for the plain one")
         err = float((lk - lp).abs().max())
@@ -1436,7 +1658,9 @@ class Smoke:
             if model is km:
                 n = eng.n_decode_calls
                 check(self._lm_counts() == {"flash_attention": 0,
-                                            "rmsnorm": 5 * n, "swiglu": 2 * n},
+                                            "rmsnorm": 5 * n,
+                                            "rmsnorm_one_read": 5 * n,
+                                            "swiglu": 2 * n},
                       f"lm_serve f32: decode launches {self._lm_counts()} "
                       f"for {n} decode steps")
         check(outs[0] == outs[1] and len(outs[0]) == 6
@@ -1463,8 +1687,10 @@ class Smoke:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         pre = self._lm_counts()
-        check(pre == {"flash_attention": 36, "rmsnorm": 73, "swiglu": 36},
-              f"lm_serve: prefill launches {pre} (36/73/36 expected)")
+        check(pre == {"flash_attention": 36, "rmsnorm": 73,
+                      "rmsnorm_one_read": 73, "swiglu": 36},
+              f"lm_serve: prefill launches {pre} (36/73/36 expected, every "
+              "rmsnorm on the one-read kernel)")
         check(logits.shape == (4, vocab) and bool(torch.isfinite(logits).all())
               and len(caches["seg_00"]) == 36
               and caches["seg_00"][0]["k"].shape == (4, 4096, 8, 128),
@@ -1499,9 +1725,10 @@ class Smoke:
         served = self._lm_counts()
         n = eng.n_decode_calls
         check(served == {"flash_attention": 0, "rmsnorm": 73 * n,
-                         "swiglu": 36 * n},
+                         "rmsnorm_one_read": 73 * n, "swiglu": 36 * n},
               f"lm_serve: engine launches {served} for {n} decode steps "
-              "(73/36 per step expected)")
+              "(73/36 per step expected, every rmsnorm on the one-read "
+              "kernel)")
         check(len(done) == 8
               and all(len(r.out) == SERVE_MAX_NEW for r in done)
               and all(0 <= t < vocab for r in done for t in r.out),
@@ -1628,15 +1855,81 @@ class Smoke:
             if name in ("flash_attention", "rmsnorm", "swiglu"):
                 row["launches_by_path"] = {
                     path: c[name] for path, c in self.lm_launches.items()}
+            if name == "rmsnorm" and self.lm_launches:
+                row["launches_one_read"] = sum(
+                    c["rmsnorm_one_read"] for c in self.lm_launches.values())
             shapes = [t for t in self.timings if t["kernel"] == name]
             main = next((t for t in shapes
                          if t["shape"] == main_shape[name]), None)
             for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms"):
                 row[key] = None if main is None else main[key]
+            if main is not None and "sdpa" in main:
+                row["library_backend"] = main["sdpa"]["default_backend"]
             row["shapes"] = shapes
             rows.append(row)
         return rows
+
+
+def _flash_bf16_p(torch, q, k, v, causal: bool):
+    """The plain flash version with P rounded to bf16 before P·V, one batch
+    row at a time: the row max and l from f32 logits, p = exp(s - max)
+    rounded to bf16, out = (p @ v) / l in f32, cast to q's dtype."""
+    b, h, s, dh = q.shape
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    for i in range(b):
+        g = h // k.shape[1]
+        kq = torch.repeat_interleave(k[i:i + 1], g, dim=1).float()
+        vq = torch.repeat_interleave(v[i:i + 1], g, dim=1).float()
+        logits = torch.einsum("bhqd,bhkd->bhqk", q[i:i + 1].float(),
+                              kq) * dh ** -0.5
+        if causal:
+            pos = torch.arange(s, device=q.device)
+            logits = logits.masked_fill(pos[None, :] > pos[:, None],
+                                        -torch.inf)
+        p = torch.exp(logits - logits.amax(-1, keepdim=True))
+        del logits
+        l = p.sum(-1, keepdim=True)
+        o = torch.einsum("bhqk,bhkd->bhqd",
+                         p.to(torch.bfloat16).float(), vq) / l
+        out[i:i + 1] = o.to(q.dtype)
+        del p, o
+    return out
+
+
+def _ptxas_summary(log: str) -> list[dict]:
+    """Registers, spill bytes and shared memory of each kernel entry in
+    `nvcc -Xptxas -v` output, with the names demangled where c++filt is
+    found."""
+    import re
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r["kernel"] = n.replace("(anonymous namespace)::", "") \
+                    .split("(")[0].removeprefix("void ")
+    except OSError:
+        pass
+    return rows
 
 
 def _device_events(prof) -> list[tuple[str, float, int]]:

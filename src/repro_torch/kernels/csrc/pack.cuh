@@ -33,16 +33,19 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// 16 bytes at p (4 f32 or 8 bf16) as floats.
-__device__ __forceinline__ void load16(const float* p, float* f) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x;
-  f[1] = v.y;
-  f[2] = v.z;
-  f[3] = v.w;
+// 16 bytes held in registers (4 f32 or 8 bf16) as floats.
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& raw, float* f);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& raw, float* f) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+template <>
+__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& raw,
+                                                        float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -50,6 +53,12 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
+}
+
+// 16 bytes at p (4 f32 or 8 bf16) as floats.
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* f) {
+  unpack16<T>(*reinterpret_cast<const uint4*>(p), f);
 }
 
 __device__ __forceinline__ void store16(float* p, const float* f) {
@@ -63,13 +72,10 @@ __device__ __forceinline__ void store16(__nv_bfloat16* p, const float* f) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-// 8 consecutive elements at p (32 bytes of f32, 16 of bf16) as floats.
+// 8 consecutive f32 elements at p (32 bytes) as floats.
 __device__ __forceinline__ void load8(const float* p, float* f) {
   load16(p, f);
   load16(p + 4, f + 4);
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  load16(p, f);
 }
 
 }  // namespace pack

@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention import (
     check_shapes as _flash_check_shapes,
     flash_attention as _flash_attention,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+from repro_torch.kernels.rmsnorm import rmsnorm_launch as _rmsnorm_launch
 from repro_torch.kernels.swiglu import swiglu as _swiglu
 from repro_torch.kernels.topk_stream import (
     topk_multiprobe_stream as _topk_mp_stream,
@@ -36,23 +36,29 @@ __all__ = ["assign", "pairwise_argmin", "serve_assign", "serve_topk",
            "serve_topk_multiprobe", "ASSIGN_LAUNCHES",
            "PAIRWISE_ARGMIN_LAUNCHES", "TOPK_LAUNCHES", "TOPK_MP_LAUNCHES",
            "flash_attention", "rmsnorm", "swiglu", "FLASH_LAUNCHES",
-           "RMSNORM_LAUNCHES", "SWIGLU_LAUNCHES", "reset_launch_counts"]
+           "RMSNORM_LAUNCHES", "RMSNORM_ONE_READ_LAUNCHES",
+           "RMSNORM_TWO_PASS_LAUNCHES", "SWIGLU_LAUNCHES",
+           "reset_launch_counts"]
 
 ASSIGN_LAUNCHES = 0
 PAIRWISE_ARGMIN_LAUNCHES = 0
 TOPK_LAUNCHES = 0
 TOPK_MP_LAUNCHES = 0
 FLASH_LAUNCHES = 0
-RMSNORM_LAUNCHES = 0
+RMSNORM_LAUNCHES = 0           # both rmsnorm kernels; by kernel below
+RMSNORM_ONE_READ_LAUNCHES = 0
+RMSNORM_TWO_PASS_LAUNCHES = 0
 SWIGLU_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
     global ASSIGN_LAUNCHES, PAIRWISE_ARGMIN_LAUNCHES, TOPK_LAUNCHES, \
-        TOPK_MP_LAUNCHES, FLASH_LAUNCHES, RMSNORM_LAUNCHES, SWIGLU_LAUNCHES
+        TOPK_MP_LAUNCHES, FLASH_LAUNCHES, RMSNORM_LAUNCHES, SWIGLU_LAUNCHES, \
+        RMSNORM_ONE_READ_LAUNCHES, RMSNORM_TWO_PASS_LAUNCHES
     ASSIGN_LAUNCHES = PAIRWISE_ARGMIN_LAUNCHES = 0
     TOPK_LAUNCHES = TOPK_MP_LAUNCHES = 0
     FLASH_LAUNCHES = RMSNORM_LAUNCHES = SWIGLU_LAUNCHES = 0
+    RMSNORM_ONE_READ_LAUNCHES = RMSNORM_TWO_PASS_LAUNCHES = 0
 
 
 def _use_kernel(x: torch.Tensor, backend: str) -> bool:
@@ -231,11 +237,17 @@ def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
 
 def rmsnorm(x, weight, eps: float = 1e-6, backend: str = "auto"):
     """(x * rsqrt(mean(x^2) + eps)) * weight over the last dim, f32 math,
-    in x's dtype."""
-    global RMSNORM_LAUNCHES
+    in x's dtype.  A launch is counted in RMSNORM_LAUNCHES and in the count
+    of the kernel the launch reports it ran (one read or two passes)."""
+    global RMSNORM_LAUNCHES, RMSNORM_ONE_READ_LAUNCHES, \
+        RMSNORM_TWO_PASS_LAUNCHES
     if _use_kernel(x, backend):
-        out = _rmsnorm(x, weight, eps=eps)
+        out, packs = _rmsnorm_launch(x, weight, eps=eps)
         RMSNORM_LAUNCHES += 1
+        if packs:
+            RMSNORM_ONE_READ_LAUNCHES += 1
+        else:
+            RMSNORM_TWO_PASS_LAUNCHES += 1
         return out
     return _ref.rmsnorm_ref(x, weight, eps=eps)
 
