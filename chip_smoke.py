@@ -235,17 +235,30 @@ class Smoke:
                   for name in SOURCES}})
 
     # ----------------------------------------------------------- kernels
-    def _inputs(self, n, k, d, count, holes=False, dup=False, seed=0):
+    def _inputs(self, n, k, d, count, holes=False, dup=False, seed=0,
+                unaligned=False):
+        """Random x and centers, the mask (False at and past the count,
+        with random holes if asked), the count on the device.  `dup`: every
+        center appears twice, at i and i + k/2.  `unaligned`: centers and
+        mask start 4 bytes and 1 byte past a 16-byte boundary."""
         torch = self.torch
         g = torch.Generator(device=self.dev).manual_seed(seed)
         x = torch.randn((n, d), generator=g, device=self.dev)
-        c = torch.randn((k, d), generator=g, device=self.dev)
+        if unaligned:
+            c = torch.randn((k * d + 1,), generator=g,
+                            device=self.dev)[1:].view(k, d)
+        else:
+            c = torch.randn((k, d), generator=g, device=self.dev)
         if dup:
             # every center appears twice at (i, i + k/2): ties everywhere
             c[k // 2:] = c[:k - k // 2]
         mask = torch.arange(k, device=self.dev) < count
         if holes:
             mask &= torch.rand((k,), generator=g, device=self.dev) > 0.3
+        if unaligned:
+            buf = torch.zeros((k + 1,), dtype=torch.bool, device=self.dev)
+            buf[1:] = mask
+            mask = buf[1:]
         cnt = torch.full((1,), count, dtype=torch.int32, device=self.dev)
         return x, c, mask, cnt
 
@@ -295,24 +308,32 @@ class Smoke:
               "index_mismatches": int(mism.sum()), "near_tie_rows": n_near})
         return d2k, ik
 
-    def _time(self, name, x, c, mask, cnt):
+    def _time(self, name, x, c, mask, cnt, sibling=False):
+        """`dpmeans_assign` at one shape.  With `sibling`, `topk_stream` at
+        k = 1 on the same inputs is timed beside it: the port's own kernel
+        for the same function (no PyTorch call computes it)."""
         torch = self.torch
-        from repro_torch.kernels.dpmeans_assign import dpmeans_assign
+        from repro_torch.kernels.dpmeans_assign import dpmeans_assign, n_split
         from repro_torch.kernels.ref import assign_ref
+        from repro_torch.kernels.topk_stream import topk_stream
         m = mask & (torch.arange(c.shape[0], device=self.dev) < cnt)
         n, d = x.shape
         active = min(int(cnt), c.shape[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         self._time_kernel(
             "dpmeans_assign", name,
             lambda: dpmeans_assign(x, c, mask, cnt),
             lambda: assign_ref(x, c, m),
             flops=2.0 * n * active * d,
             nbytes=4.0 * (n * d + active * d + 2 * n + 1) + active,
-            n=n, k=c.shape[0], d=d, count=int(cnt))
+            sibling=(lambda: topk_stream(x, c, mask, cnt, 1)) if sibling
+            else None,
+            n=n, k=c.shape[0], d=d, count=int(cnt),
+            n_split=n_split(n, c.shape[0], d, sms))
 
     def _time_kernel(self, kernel_name, shape, kernel, plain, *, flops,
                      nbytes, peak_flops=PEAK_F32_FLOPS, library=None,
-                     **meta):
+                     sibling=None, **meta):
         """Device time of a kernel and of its plain version at one shape,
         beside the bound: the larger of its operations at `peak_flops` (the
         peak for the inputs' type: f32 outside the tensor cores unless
@@ -321,11 +342,14 @@ class Smoke:
         graph replay, so its time is the card's, not its host launch
         path's.  `library` is the one PyTorch call that computes the same
         function, where there is one (library_ms is None otherwise); it is
-        timed like the kernel."""
+        timed like the kernel, and so is `sibling` (sibling_ms), another of
+        the port's kernels that computes the same function."""
         torch = self.torch
         k_ms, k_ahead = _queued_ms(torch, kernel)
         p_ms, p_ahead = _graph_ms(torch, plain)
         lib_ms = None if library is None else _queued_ms(torch, library)[0]
+        if sibling is not None:
+            meta["sibling_ms"] = _queued_ms(torch, sibling)[0]
         t_ops = flops / peak_flops * 1e3
         t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
         row = {"kernel": kernel_name, "shape": shape, **meta,
@@ -348,7 +372,20 @@ class Smoke:
         cases = [
             ("paper", dict(n=2048, k=512, d=16, count=37)),
             ("retrieval", dict(n=256, k=131072, d=16, count=110000)),
+            ("score", dict(n=64, k=131072, d=16, count=110000)),
+            ("routing", dict(n=110000, k=512, d=16, count=512)),
             ("one_row", dict(n=1, k=131072, d=16, count=5)),
+            # the center range split over blocks: one live center; fewer
+            # live tiles than splits (idle splits); exact ties across
+            # splits; holes at the full capacity
+            ("score_count1", dict(n=64, k=131072, d=16, count=1)),
+            ("idle_splits", dict(n=64, k=131072, d=16, count=5000)),
+            ("duplicates_131072", dict(n=64, k=131072, d=16, count=131072,
+                                       dup=True)),
+            ("holes_131072", dict(n=256, k=131072, d=16, count=110000,
+                                  holes=True)),
+            ("unaligned", dict(n=100, k=3000, d=16, count=2900, holes=True,
+                               unaligned=True)),
             ("d100_holes", dict(n=1000, k=1000, d=100, count=1000, holes=True)),
             ("d768_holes", dict(n=1000, k=1000, d=768, count=1000, holes=True)),
             ("count0", dict(n=300, k=256, d=16, count=0)),
@@ -360,27 +397,33 @@ class Smoke:
             inp = self._inputs(seed=self.seed + i, **kw)
             outs[name] = (inp, self._compare(name, *inp))
         # duplicates: the lower index must win every exact tie
-        (_, c, _, _), (_, ik) = outs["duplicates"]
-        check(bool((ik < c.shape[0] - c.shape[0] // 2).all()),
-              "duplicates: lowest index wins")
+        for name in ("duplicates", "duplicates_131072"):
+            (_, c, _, _), (_, ik) = outs[name]
+            check(bool((ik < c.shape[0] - c.shape[0] // 2).all()),
+                  f"{name}: lowest index wins")
+        _, (_, i1) = outs["score_count1"]
+        check(bool((i1 == 0).all()), "score_count1: the one live center")
         # count 0: everything (inf, -1)
         _, (d2z, iz) = outs["count0"]
         check(bool(torch.isinf(d2z).all()) and bool((iz == -1).all()),
               "count0: (inf, -1)")
         # Row independence: each row alone, and the batch reversed, give the
-        # same bits as the batch.
-        (x, c, mask, cnt), (d2b, ib) = outs["paper"]
-        alone = [dpmeans_assign(x[r:r + 1].contiguous(), c, mask, cnt)
-                 for r in range(x.shape[0])]
-        d2a = torch.cat([a[0] for a in alone])
-        ia = torch.cat([a[1] for a in alone])
-        rev = torch.flip(x, [0]).contiguous()
-        d2r, ir = dpmeans_assign(rev, c, mask, cnt)
-        check(torch.equal(d2a, d2b) and torch.equal(ia, ib),
-              "row independence: rows alone == batch, bitwise")
-        check(torch.equal(torch.flip(d2r, [0]), d2b)
-              and torch.equal(torch.flip(ir, [0]), ib),
-              "row independence: reversed batch == batch, bitwise")
+        # same bits as the batch (at the retrieval shape a row alone runs
+        # with 256 splits, the batch with 66).
+        for name in ("paper", "retrieval"):
+            (x, c, mask, cnt), (d2b, ib) = outs[name]
+            alone = [dpmeans_assign(x[r:r + 1].contiguous(), c, mask, cnt)
+                     for r in range(x.shape[0])]
+            d2a = torch.cat([a[0] for a in alone])
+            ia = torch.cat([a[1] for a in alone])
+            rev = torch.flip(x, [0]).contiguous()
+            d2r, ir = dpmeans_assign(rev, c, mask, cnt)
+            check(torch.equal(d2a, d2b) and torch.equal(ia, ib),
+                  f"{name} row independence: rows alone == batch, bitwise")
+            check(torch.equal(torch.flip(d2r, [0]), d2b)
+                  and torch.equal(torch.flip(ir, [0]), ib),
+                  f"{name} row independence: reversed batch == batch, "
+                  "bitwise")
         # What the wrapper refuses.
         for what, call in (
                 ("f64 input", lambda: dpmeans_assign(x.double(), c, mask, cnt)),
@@ -393,11 +436,30 @@ class Smoke:
                 continue
             raise CheckFailed(f"{what} must raise")
         emit({"phase": "kernels", "row_independence": True, "raises": True,
-              "max_abs_err": self.max_abs_err["dpmeans_assign"]})
+              "max_abs_err": self.max_abs_err["dpmeans_assign"],
+              "ptxas": self._assign_ptxas()})
         self._time("paper", *outs["paper"][0])
-        self._time("retrieval", *outs["retrieval"][0])
+        self._time("retrieval", *outs["retrieval"][0], sibling=True)
+        self._time("score", *outs["score"][0], sibling=True)
+        self._time("routing", *outs["routing"][0])
         self._topk_kernels()
         self._multiprobe_kernels()
+
+    def _assign_ptxas(self) -> list[dict]:
+        """ptxas's registers and spills for every kernel of the
+        `dpmeans_assign` library (from the build log); fails on a spill."""
+        from repro_torch.kernels import _build
+        _build.build("dpmeans_assign")
+        log = _build.BUILD_LOG.get("dpmeans_assign", {}).get("ptxas", "")
+        if not log:
+            return [{"ptxas": "not reported: the library was built by an "
+                              "earlier run"}]
+        rows = _ptxas_summary(log)
+        check(bool(rows) and all("registers" in r for r in rows),
+              "dpmeans_assign: ptxas reported every kernel")
+        check(all(r.get("spill_stores", 0) == 0 and r.get("spill_loads", 0) == 0
+                  for r in rows), f"dpmeans_assign: no spills ({rows})")
+        return rows
 
     # ------------------------------------------------------ top-k kernels
     def _topk_agree(self, kernel, name, x, table, d2k, ik, d2p, ip):
@@ -991,7 +1053,7 @@ class Smoke:
         self._time_multiprobe(qt[:bucket].contiguous(), h, probes, topk)
         self._time("serve_score", qt[:bucket].contiguous(), snap.centers,
                    snap.mask, torch.full((1,), snap.count, dtype=torch.int32,
-                                         device=self.dev))
+                                         device=self.dev), sibling=True)
         emit({"phase": "serve", **res})
         for key in ("top1_eq_score", "full_union_eq_flat", "audit_replay",
                     "coalesced_eq_solo", "restore_eq_uninterrupted"):

@@ -1,7 +1,8 @@
 // Squared distances for the port's center kernels on Hopper (sm_90a):
 // ||x||^2 + ||c||^2 - 2 x.c, included by dpmeans_assign.cu (which takes
-// the tiling constants, `combine` and `lex_less` and writes the same tile
-// loop out itself) and topk_stream.cu (which uses `tile_dots`).
+// only `combine` and `lex_less`: its tiles, 256 centers through a cp.async
+// ring at D = 16 and 64 x 64 chunks at other widths, are its own) and
+// topk_stream.cu (which uses the tiling below and `tile_dots`).
 //
 // Exactness.  Every dot product, ||x||^2 and ||c||^2 is a chain of fmaf in
 // ascending d starting from 0, the distance is combined with

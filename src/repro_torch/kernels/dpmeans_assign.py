@@ -5,11 +5,16 @@ min squared distance and argmin over a count-bounded active prefix of the
 center pool.  The source file says what bounds the kernel on an H100 and
 what its design does about it.
 
-The wrapper checks every input, allocates the outputs with `torch.empty`,
-and launches on PyTorch's current stream without synchronising.  It takes
-CUDA tensors only: the plain version for CPU tensors is `ref.assign_ref`,
-and the choice between them is made by `ops.assign` from the tensor's
-device.
+The center range is split over S blocks per 64-row block (`n_split`, a
+plain function of the shapes and the SM count); the result does not depend
+on S.  The wrapper checks every input, allocates the outputs with
+`torch.empty`, and launches on PyTorch's current stream without
+synchronising.  A split launch merges the splits through one 64-bit key a
+row and one ticket counter a row block: those live in buffers kept per
+(device, stream), all ones and zero, which every launch leaves so again,
+so launches on one stream never share them while they run.  It takes CUDA
+tensors only: the plain version for CPU tensors is `ref.assign_ref`, and
+the choice between them is made by `ops.assign` from the tensor's device.
 """
 from __future__ import annotations
 
@@ -19,9 +24,57 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["dpmeans_assign"]
+__all__ = ["dpmeans_assign", "n_split", "block_k", "BLOCK_N", "FAST_D"]
+
+BLOCK_N = 64          # query rows per block
+FAST_D = 16           # the width of the fast kernel (tiles of 256 centers)
+_BLOCKS_PER_SM = 2
+_MIN_TILES_PER_SPLIT = 2
 
 _FN = None
+_SMS: dict[int, int] = {}
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def block_k(d: int) -> int:
+    """Centers per tile of the kernel that takes width d."""
+    return 256 if d == FAST_D else 64
+
+
+def n_split(rows: int, k: int, d: int, sms: int) -> int:
+    """Blocks along the center range for `rows` query rows over a pool of
+    capacity k at width d on a card of `sms` SMs: enough that the grid
+    holds about two blocks an SM, and at most one split per two tiles of
+    the capacity, so that each split's tile ring has work to overlap and a
+    pool of one or two tiles (the paper's) takes no merge.  Depends only on
+    the shapes, never on the count or the data; the result does not depend
+    on it."""
+    row_blocks = max(1, -(-rows // BLOCK_N))
+    tiles = max(1, -(-k // block_k(d)))
+    want = -(-_BLOCKS_PER_SM * sms // row_blocks)
+    return max(1, min(want, tiles // _MIN_TILES_PER_SPLIT))
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms = _SMS.get(idx)
+    if sms is None:
+        sms = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return sms
+
+
+def _scratch(dev: torch.device, stream: int, n: int):
+    """(keys, tickets) of (device, stream): at least n int64 keys, all
+    ones, and ceil(n/64) int32 tickets, zero."""
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
+           stream)
+    got = _SCRATCH.get(key)
+    if got is None or got[0].numel() < n:
+        rows = max(16384, n)
+        got = _SCRATCH[key] = (
+            torch.full((rows,), -1, dtype=torch.int64, device=dev),
+            torch.zeros((-(-rows // BLOCK_N),), dtype=torch.int32, device=dev))
+    return got
 
 
 def _fn():
@@ -29,7 +82,8 @@ def _fn():
     if _FN is None:
         lib = _build.load("dpmeans_assign")
         fn = lib.dpmeans_assign_f32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -70,8 +124,13 @@ def dpmeans_assign(x: torch.Tensor, centers: torch.Tensor, mask: torch.Tensor,
     d2 = torch.empty((n,), dtype=torch.float32, device=dev)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    s = n_split(n, k, d, _sm_count(dev))
+    keys = tickets = 0
+    if s > 1 and n > 0:
+        keys, tickets = (t.data_ptr() for t in _scratch(dev, stream, n))
     err = _fn()(x.data_ptr(), centers.data_ptr(), mask.data_ptr(),
-                count.data_ptr(), d2.data_ptr(), idx.data_ptr(), n, k, d, stream)
+                count.data_ptr(), d2.data_ptr(), idx.data_ptr(), keys, tickets,
+                n, k, d, s, stream)
     if err != 0:
         raise RuntimeError(f"dpmeans_assign launch failed: CUDA error {err}")
     return d2, idx

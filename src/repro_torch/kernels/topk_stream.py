@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dpmeans_assign import _check
+from repro_torch.kernels.dpmeans_assign import _check, _sm_count
 
 __all__ = ["topk_stream", "topk_multiprobe_stream", "topk_tile_loads",
            "MAX_K", "BLOCK_K"]
@@ -66,17 +66,11 @@ def _bucket(k: int) -> int:
     return b
 
 
-_SMS: dict[int, int] = {}
-
-
 def _n_split(dev: torch.device, rows: int, items: int) -> int:
     """Blocks along the candidate range: enough that the grid fills the
     card about twice, at most one per candidate tile.  Depends only on the
     shapes, never on the data; the result does not depend on it."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    sms = _SMS.get(idx)
-    if sms is None:
-        sms = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    sms = _sm_count(dev)
     row_blocks = -(-rows // _BLOCK_N)
     want = -(-_BLOCKS_PER_SM * sms // row_blocks)
     return max(1, min(want, items))
