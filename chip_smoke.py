@@ -424,9 +424,21 @@ class Smoke:
                   and torch.equal(torch.flip(ir, [0]), ib),
                   f"{name} row independence: reversed batch == batch, "
                   "bitwise")
+        # topk_stream at k = 1 is the same kernel: bitwise at the main
+        # path's shapes
+        from repro_torch.kernels.topk_stream import topk_stream
+        for name in ("score", "retrieval", "routing"):
+            (x, c, mask, cnt), (d2b, ib) = outs[name]
+            d2t, it = topk_stream(x, c, mask, cnt, 1)
+            check(torch.equal(d2t[:, 0], d2b) and torch.equal(it[:, 0], ib),
+                  f"{name}: topk_stream k=1 == dpmeans_assign, bitwise")
+        self._assign_lowp()
         # What the wrapper refuses.
+        x, c, mask, cnt = outs["retrieval"][0]
         for what, call in (
                 ("f64 input", lambda: dpmeans_assign(x.double(), c, mask, cnt)),
+                ("f16 x with f32 centers",
+                 lambda: dpmeans_assign(x.half(), c, mask, cnt)),
                 ("int64 count", lambda: dpmeans_assign(x, c, mask, cnt.long())),
                 ("cpu tensor on the cuda backend",
                  lambda: ops.assign(x.cpu(), c.cpu(), backend="cuda"))):
@@ -436,29 +448,82 @@ class Smoke:
                 continue
             raise CheckFailed(f"{what} must raise")
         emit({"phase": "kernels", "row_independence": True, "raises": True,
+              "top1_eq_assign_main_shapes": True,
               "max_abs_err": self.max_abs_err["dpmeans_assign"],
-              "ptxas": self._assign_ptxas()})
+              "ptxas": self._ptxas_checked("dpmeans_assign")})
         self._time("paper", *outs["paper"][0])
         self._time("retrieval", *outs["retrieval"][0], sibling=True)
         self._time("score", *outs["score"][0], sibling=True)
-        self._time("routing", *outs["routing"][0])
+        self._time("routing", *outs["routing"][0], sibling=True)
         self._topk_kernels()
         self._multiprobe_kernels()
 
-    def _assign_ptxas(self) -> list[dict]:
-        """ptxas's registers and spills for every kernel of the
-        `dpmeans_assign` library (from the build log); fails on a spill."""
+    def _assign_lowp(self):
+        """dpmeans_assign on float16 and bfloat16 inputs (the kernel widens
+        to f32 inside) against `ref.pairwise_argmin_ref`, which widens the
+        same tensors: the fast width, a generic width and an unaligned
+        view.  d2 within 5e-3 (the reference's f16 bar; both sum f32
+        products, in other orders), ids equal but where the plain
+        version's two smallest distances lie within REL_TOL of the scale
+        (a near tie)."""
+        torch = self.torch
+        from repro_torch.kernels.dpmeans_assign import dpmeans_assign
+        from repro_torch.kernels.ref import pairwise_argmin_ref
+        g = torch.Generator(device=self.dev).manual_seed(self.seed + 50)
+        for dt in (torch.float16, torch.bfloat16):
+            for name, n, k, d, unaligned in (("fast", 256, 3000, 16, False),
+                                             ("generic", 200, 500, 40, False),
+                                             ("unaligned", 100, 3000, 16,
+                                              True)):
+                x = torch.randn((n, d), generator=g, device=self.dev).to(dt)
+                flat = torch.randn((k * d + 1,), generator=g,
+                                   device=self.dev).to(dt)
+                c = flat[1:].view(k, d) if unaligned else \
+                    flat[:k * d].view(k, d)
+                mask = torch.rand((k,), generator=g, device=self.dev) > 0.3
+                cnt = torch.full((1,), k, dtype=torch.int32, device=self.dev)
+                check((c.data_ptr() % 16 != 0) == unaligned,
+                      f"assign {dt} {name}: the view's alignment")
+                d2k, ik = dpmeans_assign(x, c, mask, cnt)
+                d2p, ip = pairwise_argmin_ref(x, c, mask)
+                torch.cuda.synchronize()
+                err = float((d2k - d2p).abs().max())
+                check(err <= 5e-3, f"assign {dt} {name}: d2 within 5e-3, "
+                      f"worst {err}")
+                xf, cf = x.float(), c.float()
+                dm = torch.clamp_min((xf * xf).sum(-1, keepdim=True)
+                                     + (cf * cf).sum(-1)[None, :]
+                                     - 2.0 * xf @ cf.T, 0.0)
+                dm = torch.where(mask[None, :], dm, torch.inf)
+                two = torch.topk(dm, 2, dim=1, largest=False).values
+                scale = (xf * xf).sum(-1) + (cf * cf).sum(-1)[ip.long()]
+                near = (two[:, 1] - two[:, 0]) <= REL_TOL * scale
+                mism = ik != ip
+                check(not bool((mism & ~near).any()),
+                      f"assign {dt} {name}: {int((mism & ~near).sum())} id "
+                      "mismatches outside near ties")
+                self.max_abs_err["dpmeans_assign"] = max(
+                    self.max_abs_err["dpmeans_assign"], err)
+                emit({"phase": "kernels", "kernel": "dpmeans_assign",
+                      "case": f"{str(dt).replace('torch.', '')} {name}",
+                      "n": n, "k": k, "d": d, "max_abs_err": err,
+                      "index_mismatches": int(mism.sum()),
+                      "near_tie_rows": int(near.sum())})
+
+    def _ptxas_checked(self, name: str) -> list[dict]:
+        """ptxas's registers and spills for every kernel of the `name`
+        library (from the build log); fails on a spill."""
         from repro_torch.kernels import _build
-        _build.build("dpmeans_assign")
-        log = _build.BUILD_LOG.get("dpmeans_assign", {}).get("ptxas", "")
+        _build.build(name)
+        log = _build.BUILD_LOG.get(name, {}).get("ptxas", "")
         if not log:
             return [{"ptxas": "not reported: the library was built by an "
                               "earlier run"}]
         rows = _ptxas_summary(log)
         check(bool(rows) and all("registers" in r for r in rows),
-              "dpmeans_assign: ptxas reported every kernel")
+              f"{name}: ptxas reported every kernel")
         check(all(r.get("spill_stores", 0) == 0 and r.get("spill_loads", 0) == 0
-                  for r in rows), f"dpmeans_assign: no spills ({rows})")
+                  for r in rows), f"{name}: no spills ({rows})")
         return rows
 
     # ------------------------------------------------------ top-k kernels
@@ -524,12 +589,27 @@ class Smoke:
              20),
             ("k64", dict(n=70, k=2000, d=32, count=1500), 64),
             ("nan_tail", dict(n=50, k=256, d=16, count=100), 8),
+            # every k bucket on the fast tile with a split merge
+            ("k2", dict(n=100, k=4096, d=16, count=4000), 2),
+            ("k16", dict(n=100, k=4096, d=16, count=4000, holes=True), 16),
+            ("k32", dict(n=100, k=4096, d=16, count=4000), 32),
+            ("k64_fast", dict(n=100, k=4096, d=16, count=4000), 64),
+            ("unaligned", dict(n=100, k=3000, d=16, count=2900, holes=True,
+                               unaligned=True), 8),
+            # distances that fall with the center index: each half tile
+            # beats every list built before it, the most insertions
+            ("falling", dict(n=64, k=4096, d=16, count=4096), 8),
         ]
         outs = {}
         for i, (name, kw, k) in enumerate(cases):
             x, c, mask, cnt = self._inputs(seed=self.seed + 100 + i, **kw)
             if name == "nan_tail":
                 c[kw["count"]:] = torch.nan
+            if name == "falling":
+                x *= 0.01
+                u = torch.nn.functional.normalize(c[:1], dim=1)
+                c.copy_(u * torch.linspace(2.0, 1.0, kw["k"],
+                                           device=self.dev)[:, None])
             d2k, ik = topk_stream(x, c, mask, cnt, k)
             d2p, ip = ops.serve_topk(x, c, k, mask=mask, count=cnt,
                                      backend="plain")
@@ -577,9 +657,14 @@ class Smoke:
             except (TypeError, ValueError):
                 continue
             raise CheckFailed(f"topk: {what} must raise")
+        (_, c, _, _), (_, ik) = outs["falling"]
+        check(bool((ik == torch.arange(c.shape[0] - 1, c.shape[0] - 9, -1,
+                                       device=self.dev)[None, :]).all()),
+              "falling: the last 8 centers, nearest first")
         emit({"phase": "kernels", "kernel": "topk_stream",
               "top1_eq_assign": True, "row_independence": True,
-              "raises": True, "max_abs_err": self.max_abs_err["topk_stream"]})
+              "raises": True, "max_abs_err": self.max_abs_err["topk_stream"],
+              "ptxas": self._ptxas_checked("topk_stream")})
         for shape, k in (("serve_flat", 8), ("routing", 4)):
             (x, c, mask, cnt), _ = outs[shape]
             n, d = x.shape
@@ -630,6 +715,7 @@ class Smoke:
         member[:, :4] = torch.rand((b, 4), generator=g, device=dev) > 0.3
         member[:, 3] = False
         member[0] = False
+        member[1, :4] = True   # one query a member of every counted rank
         uc = torch.full((1,), 4, dtype=torch.int32, device=dev)
         for k in (1, 8, 64):
             d2m, im = topk_multiprobe_stream(
@@ -1114,7 +1200,12 @@ class Smoke:
 
     def _time_multiprobe(self, xb, h, probes, topk):
         """The multi-probe kernel at the serving shape: one 64-query
-        microbatch, p probes, over the union the index gives it."""
+        microbatch, p probes, over the union the index gives it.  The bound
+        counts what these inputs need: 2 D operations for each member pair
+        (query, valid row of a shard it probes), and one read of x, of the
+        probed shards' valid rows and ids and of their masks, plus the
+        outputs.  The kernel's own count of the distances it formed (its
+        `_stats` hook) must equal the member pairs."""
         torch = self.torch
         from repro_torch.kernels.ref import topk_multiprobe_ref
         from repro_torch.kernels.topk_stream import topk_multiprobe_stream
@@ -1127,7 +1218,19 @@ class Smoke:
             backend="auto")
         uc = n_probed.reshape(1)
         used = int(uc)
-        rows = int(h.fine_mask[union[:used].long()].sum())
+        probed = union[:used].long()
+        valid = h.fine_mask[probed.clamp_min(0)] & (probed >= 0)[:, None]
+        rows = int(valid.sum())
+        member_rows = int((member[:, :used].long()
+                           * valid.sum(1)[None, :]).sum())
+        stats = torch.zeros((2,), dtype=torch.int64, device=self.dev)
+        topk_multiprobe_stream(xb, h.fine, h.fine_ids, h.fine_mask, union,
+                               member, uc, topk, _stats=stats)
+        torch.cuda.synchronize()
+        formed = int(stats[0])
+        check(formed == member_rows,
+              f"multiprobe: the kernel formed {formed} distances for "
+              f"{member_rows} member pairs")
         self._time_kernel(
             "topk_multiprobe_stream", "serve_multiprobe",
             lambda: topk_multiprobe_stream(xb, h.fine, h.fine_ids,
@@ -1135,11 +1238,13 @@ class Smoke:
                                            topk),
             lambda: topk_multiprobe_ref(xb, h.fine, h.fine_ids, h.fine_mask,
                                         union, member, topk),
-            flops=2.0 * b * rows * d,
-            nbytes=(4.0 * (b * d + rows * d + rows + used + 1
-                           + 2 * b * topk) + rows + b * used),
+            flops=2.0 * d * member_rows,
+            nbytes=(4.0 * (b * d + rows * d + rows + 2 * b * topk)
+                    + used * h.shard_cap),
             n=b, d=d, probes=probes, u_count=used, u_cap=u_cap,
-            candidate_rows=rows, shard_cap=h.shard_cap, topk=topk)
+            candidate_rows=rows, member_pairs=member_rows,
+            distances_formed=formed, pair_lists=int(stats[1]),
+            shard_cap=h.shard_cap, topk=topk)
 
     def _restore_check(self) -> bool:
         """On the invariants data (its first 16,384 points, split in two):
@@ -1379,7 +1484,10 @@ class Smoke:
                                                   k[..., :48].contiguous(),
                                                   k[..., :48].contiguous()),
                  ValueError),
-                ("f16", lambda: rmsnorm(x.half(), w.half()), TypeError),
+                ("swiglu f16", lambda: swiglu(x.half(), x.half()), TypeError),
+                ("flash_attention f16",
+                 lambda: flash_attention(q.half(), k.half(), k.half()),
+                 TypeError),
                 ("mixed dtypes", lambda: swiglu(x, x.float()), TypeError),
                 ("weight shape", lambda: rmsnorm(x, w[:7]), ValueError),
                 ("shape mismatch", lambda: swiglu(x, x[:3]), ValueError),
@@ -1395,10 +1503,41 @@ class Smoke:
         emit({"phase": "lm_kernels", "raises": True,
               "max_abs_err": {n: self.max_abs_err[n] for n in
                               ("flash_attention", "rmsnorm", "swiglu")}})
+        self._rmsnorm_f16()
         self._flash_sweep(randn)
         self._rmsnorm_kernels(randn)
         self._compiled_code()
         self._time_lm_kernels(randn)
+
+    def _rmsnorm_f16(self):
+        """rmsnorm on float16 against its plain version: within 1e-2 (the
+        reference's f16 bar) at a dense width (16384, 2560, the one-read
+        kernel), at decode (4, 2560) and at a width of the two-pass kernel
+        (7, 33).  Weights near 1, as a trained norm's are, keep the outputs
+        below 8, where one f16 ulp is under the bar."""
+        torch = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.rmsnorm import rmsnorm_launch
+        g = torch.Generator(device=self.dev).manual_seed(self.seed + 310)
+        with torch.inference_mode():
+            for shape in ((16384, 2560), (4, 2560), (7, 33)):
+                x = torch.randn(shape, generator=g, device=self.dev).half()
+                w = (0.5 + torch.rand(shape[-1:], generator=g,
+                                      device=self.dev)).half()
+                got, packs = rmsnorm_launch(x, w, 1e-6)
+                want = ref.rmsnorm_ref(x, w, 1e-6)
+                torch.cuda.synchronize()
+                check(got.dtype == torch.float16
+                      and bool(torch.isfinite(got).all()),
+                      f"rmsnorm f16 {shape}: finite f16")
+                err = float((got.float() - want.float()).abs().max())
+                check(err <= 1e-2, f"rmsnorm f16 {shape}: max abs err {err}"
+                      " > 1e-2")
+                self.max_abs_err["rmsnorm"] = max(
+                    self.max_abs_err["rmsnorm"], err)
+                emit({"phase": "lm_kernels", "kernel": "rmsnorm",
+                      "case": f"f16 {shape}", "packs": packs,
+                      "max_abs_err": err, "tol": 1e-2})
 
     def _flash_sweep(self, randn):
         """The bf16 tensor-core flash kernel against its plain version, each

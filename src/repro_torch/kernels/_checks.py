@@ -7,25 +7,30 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DTYPE_CODES", "require_cuda", "require_no_grad", "aligned16",
-           "stream_of"]
+__all__ = ["DTYPE_CODES", "LM_DTYPES", "require_cuda", "require_no_grad",
+           "aligned16", "stream_of"]
 
-# The element types the kernels are compiled for, as their C code numbers them.
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The element types, as every kernel's C code numbers them (the nearest-
+# center kernel takes all three).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The types swiglu and flash_attention are compiled for (rmsnorm takes f16
+# too).
+LM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def require_cuda(name: str, t, device: torch.device | None = None,
-                 dtype: torch.dtype | None = None) -> None:
-    """`t` is a tensor on a CUDA device (that of `device` when given) of a
-    compiled element type (`dtype` when given); raises TypeError or
-    ValueError otherwise."""
+                 dtype: torch.dtype | None = None,
+                 dtypes: tuple = LM_DTYPES) -> None:
+    """`t` is a tensor on a CUDA device (that of `device` when given) of one
+    of `dtypes`, the types the kernel is compiled for (`dtype` when given);
+    raises TypeError or ValueError otherwise."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{name} must lie on the CUDA device of the first "
                          f"input, got {t.device}")
-    if t.dtype not in DTYPE_CODES:
-        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
     if dtype is not None and t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype} like the first input, "
                         f"got {t.dtype}")

@@ -1,5 +1,6 @@
 // RMSNorm for Hopper (sm_90a): out = (x * rsqrt(mean(x^2) + eps)) * w over
-// the last dim of a row-major (rows, D) tensor, f32 math, output in x's type.
+// the last dim of a row-major (rows, D) tensor, f32 math, output in x's type
+// (f32, bf16 or f16: the 16-bit types share the pack path, 8 a pack).
 //
 // Replaces the Pallas TPU kernel `_rmsnorm_kernel` / `rmsnorm` of
 // src/repro/kernels/rmsnorm.py (2 launches per transformer block and one
@@ -152,7 +153,7 @@ int launch_one_read(const void* x, const void* w, void* out, long long rows,
 template <typename T>
 int launch_packs(const void* x, const void* w, void* out, long long rows,
                  int d, float eps, int packs, cudaStream_t stream) {
-  constexpr int S = sizeof(T) / 2;  // 1 for bf16, 2 for f32
+  constexpr int S = sizeof(T) / 2;  // 1 for bf16 and f16, 2 for f32
   switch (packs) {
     case 8 * S: return launch_one_read<T, 8 * S>(x, w, out, rows, d, eps, stream);
     case 10 * S: return launch_one_read<T, 10 * S>(x, w, out, rows, d, eps, stream);
@@ -164,7 +165,7 @@ int launch_packs(const void* x, const void* w, void* out, long long rows,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (x, w and out share it).  packs: the
+// dtype: 0 float32, 1 bfloat16, 2 float16 (x, w and out share it).  packs: the
 // one-read kernel's 16-byte packs a lane (d = 32 * packs * elements a pack),
 // or 0 for the two-pass kernel.  vec (two-pass only): 1 when d is a multiple
 // of the 16-byte pack and every row is 16-byte aligned.
@@ -180,6 +181,10 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* out, int dtype,
     return packs
                ? launch_packs<__nv_bfloat16>(x, w, out, rows, d, eps, packs, s)
                : launch<__nv_bfloat16>(x, w, out, rows, d, eps, vec, s);
+  }
+  if (dtype == 2) {
+    return packs ? launch_packs<__half>(x, w, out, rows, d, eps, packs, s)
+                 : launch<__half>(x, w, out, rows, d, eps, vec, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 // Squared distances for the port's center kernels on Hopper (sm_90a):
-// ||x||^2 + ||c||^2 - 2 x.c, included by dpmeans_assign.cu (which takes
-// only `combine` and `lex_less`: its tiles, 256 centers through a cp.async
-// ring at D = 16 and 64 x 64 chunks at other widths, are its own) and
-// topk_stream.cu (which uses the tiling below and `tile_dots`).
+// ||x||^2 + ||c||^2 - 2 x.c, included by assign_tile.cuh (the
+// nearest-center tiles of dpmeans_assign.cu and topk_stream.cu, which take
+// only `combine` and `lex_less`: 256 centers through a cp.async ring at
+// D = 16 and 64 x 64 chunks at other widths) and by topk_stream.cu (whose
+// generic-width top-k uses the tiling below and `tile_dots`).
 //
 // Exactness.  Every dot product, ||x||^2 and ||c||^2 is a chain of fmaf in
 // ascending d starting from 0, the distance is combined with

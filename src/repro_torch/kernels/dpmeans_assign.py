@@ -23,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._checks import DTYPE_CODES
 
 __all__ = ["dpmeans_assign", "n_split", "block_k", "BLOCK_N", "FAST_D"]
 
@@ -81,8 +82,8 @@ def _fn():
     global _FN
     if _FN is None:
         lib = _build.load("dpmeans_assign")
-        fn = lib.dpmeans_assign_f32
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+        fn = lib.dpmeans_assign_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
@@ -104,14 +105,16 @@ def _check(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
 
 def dpmeans_assign(x: torch.Tensor, centers: torch.Tensor, mask: torch.Tensor,
                    count: torch.Tensor):
-    """Launch the kernel.  x (N, D) f32, centers (K, D) f32, mask (K,) bool
-    or uint8, count (1,) or () int32 on the device — slots at or beyond it
-    are skipped without a host sync.  All on one CUDA device, contiguous.
-    Returns (d2min (N,) f32, idx (N,) int32), (inf, -1) where no valid
-    center exists.  Raises on any other input, and when the launch fails."""
+    """Launch the kernel.  x (N, D) and centers (K, D) of one type,
+    float32, float16 or bfloat16; mask (K,) bool or uint8, count (1,) or ()
+    int32 on the device — slots at or beyond it are skipped without a host
+    sync.  All on one CUDA device, contiguous.  Returns (d2min (N,) f32,
+    idx (N,) int32), (inf, -1) where no valid center exists.  Raises on any
+    other input (TypeError for a mix of types), and when the launch
+    fails."""
     dev = x.device
-    _check("x", x, (torch.float32,), 2, None)
-    _check("centers", centers, (torch.float32,), 2, dev)
+    _check("x", x, tuple(DTYPE_CODES), 2, None)
+    _check("centers", centers, (x.dtype,), 2, dev)
     _check("mask", mask, (torch.bool, torch.uint8), 1, dev)
     _check("count", count, (torch.int32,), count.dim(), dev)
     n, d = x.shape
@@ -130,7 +133,7 @@ def dpmeans_assign(x: torch.Tensor, centers: torch.Tensor, mask: torch.Tensor,
         keys, tickets = (t.data_ptr() for t in _scratch(dev, stream, n))
     err = _fn()(x.data_ptr(), centers.data_ptr(), mask.data_ptr(),
                 count.data_ptr(), d2.data_ptr(), idx.data_ptr(), keys, tickets,
-                n, k, d, s, stream)
+                DTYPE_CODES[x.dtype], n, k, d, s, stream)
     if err != 0:
         raise RuntimeError(f"dpmeans_assign launch failed: CUDA error {err}")
     return d2, idx

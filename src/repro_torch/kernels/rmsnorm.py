@@ -29,12 +29,14 @@ from repro_torch.kernels._checks import (
 )
 
 __all__ = ["rmsnorm", "rmsnorm_launch", "one_read_packs",
-           "ONE_READ_WIDTHS"]
+           "ONE_READ_WIDTHS", "DTYPES"]
 
 # The widths the one-read kernel is compiled for: the configurations'
 # d_model, 2048 (granite-3-2b, internvl2-2b, olmoe-1b-7b, xlstm-1.3b), 2560
 # (qwen3-4b), 3072 (phi4-mini-3.8b) and 4096 (qwen3-8b, phi3.5-moe).
 ONE_READ_WIDTHS = (2048, 2560, 3072, 4096)
+# The element types the kernels are compiled for.
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 _FN = None
 
@@ -73,8 +75,8 @@ def _launch(x, weight, eps, packs, out) -> None:
 
 def _checked(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Check the inputs; return the output, allocated like x."""
-    require_cuda("x", x)
-    require_cuda("weight", weight, x.device, x.dtype)
+    require_cuda("x", x, dtypes=DTYPES)
+    require_cuda("weight", weight, x.device, x.dtype, dtypes=DTYPES)
     require_no_grad(x=x, weight=weight)
     if x.dim() < 1 or x.shape[-1] == 0:
         raise ValueError(f"x must have a non-empty last dim, got {tuple(x.shape)}")
@@ -91,8 +93,9 @@ def rmsnorm_launch(x: torch.Tensor, weight: torch.Tensor,
     """Launch the kernel the row width chooses and say which: returns (out,
     packs), `packs` the one-read kernel's 16-byte packs a lane, 0 when the
     two-pass kernel ran (`ops.rmsnorm` counts launches by kernel from it).
-    x (..., D) contiguous, weight (D,) of x's dtype (float32 or bfloat16),
-    both on one CUDA device; out is a new tensor shaped and typed like x.
+    x (..., D) contiguous, weight (D,) of x's dtype (float32, bfloat16 or
+    float16), both on one CUDA device; out is a new tensor shaped and typed
+    like x.
     Raises on any other input, on a tensor that needs a gradient, and when
     the launch fails."""
     out = _checked(x, weight)

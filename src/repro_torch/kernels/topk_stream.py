@@ -7,31 +7,45 @@ nearest centers per query row, by the lexicographic (d², id) selection of
 (`topk_multiprobe_stream`).  The source file says what bounds the kernels
 on an H100 and what their design does about it.
 
-The wrappers check every input, allocate the outputs and the per-split
-scratch with `torch.empty`, and launch on PyTorch's current stream of the
-input's device without synchronising.  They take CUDA tensors only: the
-plain versions for CPU tensors are `ref.topk_ref` and
+One launch a call.  The candidate range is split over S blocks per
+64-row block (`n_split`, `mp_n_split`, `block_k`: plain functions of the
+shapes and the SM count); the result does not depend on S.  A split flat
+launch merges in the same launch through per-split lists and tickets, a
+multi-probe launch through per-pair lists, a count a row and tickets;
+these live per (device, stream), and every launch leaves counts and
+tickets reset, so nothing is allocated a call but the outputs.  The
+wrappers check every input and launch on PyTorch's current stream of the
+input's device without synchronising.  They take float32 CUDA tensors
+only: the plain versions for CPU tensors are `ref.topk_ref` and
 `ref.topk_multiprobe_ref`, and the choice between them is made by
 `ops.serve_topk` / `ops.serve_topk_multiprobe` from the tensor's device.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dpmeans_assign import _check, _sm_count
+from repro_torch.kernels.dpmeans_assign import n_split as _assign_n_split
 
 __all__ = ["topk_stream", "topk_multiprobe_stream", "topk_tile_loads",
-           "MAX_K", "BLOCK_K"]
+           "n_split", "mp_n_split", "block_k", "MAX_K", "BLOCK_K"]
 
 MAX_K = 64        # the largest k bucket the kernels are compiled for
-BLOCK_K = 64      # centers per tile of the CUDA kernels
+BLOCK_K = 64      # the tile width the serving plane counts skipped tiles in
+FAST_D = 16       # the width of the fast tile
+_FAST_BK = 256    # centers per fast tile
+_GENERIC_BK = 64  # centers per generic tile
+_FAST_TILES_PER_SPLIT = 4
 _BLOCK_N = 64     # query rows per block
+_TICKETS = 32     # tickets a row block (the kernels' TICKETS_PER_BLOCK)
 _BLOCKS_PER_SM = 2
 
 _FNS: dict[str, object] = {}
+_SCRATCH: dict[tuple[int, int], dict[str, torch.Tensor]] = {}
 
 
 def _fn(name: str, n_ptr: int, n_int: int):
@@ -43,6 +57,72 @@ def _fn(name: str, n_ptr: int, n_int: int):
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
+
+
+def block_k(rows: int, k: int, d: int, sms: int) -> int:
+    """Centers per tile of the flat kernel for k > 1: the nearest-center
+    kernel's fast tile of 256 at D = 16 where its rule splits the capacity
+    (`dpmeans_assign.n_split` > 1), else the generic tile of 64, so that a
+    pool of one or two fast tiles (the multi-probe routing) still runs on
+    several blocks."""
+    if d == FAST_D and _assign_n_split(rows, k, d, sms) > 1:
+        return _FAST_BK
+    return _GENERIC_BK
+
+
+def n_split(rows: int, k: int, d: int, sms: int) -> int:
+    """Blocks along the center range of the flat kernel for k > 1: about
+    two blocks an SM, at most one split per four fast tiles (a split's
+    first tile pays for filling its lists, so fewer, longer splits win up
+    to there) or per generic tile.  Depends only on the shapes, never on
+    the count or the data; the result does not depend on it.  (At k = 1
+    the flat call is the nearest-center kernel, with its own rule.)"""
+    row_blocks = max(1, -(-rows // _BLOCK_N))
+    want = -(-_BLOCKS_PER_SM * sms // row_blocks)
+    if block_k(rows, k, d, sms) == _FAST_BK:
+        return max(1, min(want, -(-k // _FAST_BK) // _FAST_TILES_PER_SPLIT))
+    return max(1, min(want, -(-k // _GENERIC_BK)))
+
+
+def mp_n_split(rows: int, u: int, sms: int) -> int:
+    """Blocks along the union ranks of the multi-probe kernel for `rows`
+    queries over a union of capacity u: about two blocks an SM, at most
+    one a rank.  Depends only on the shapes, never on u_count or the
+    data."""
+    row_blocks = max(1, -(-rows // _BLOCK_N))
+    want = -(-_BLOCKS_PER_SM * sms // row_blocks)
+    return max(1, min(want, u))
+
+
+def _groups(s: int) -> int:
+    """Groups of the flat kernel's merge tree for s splits (the kernel's
+    `group_size`: all s up to 16, else about sqrt(s) a group)."""
+    if s <= 16:
+        return 1
+    gs = math.isqrt(s - 1) + 1
+    return -(-s // gs)
+
+
+def _scratch(dev: torch.device, stream: int, n: int, entries: int):
+    """The merges' scratch of (device, stream): n int64 keys, all ones (the
+    k = 1 merge); n int32 list counts, zero; 32 int32 tickets a row block,
+    zero; and lists of `entries` entries (f32 and int32)."""
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
+           stream)
+    got = _SCRATCH.get(key)
+    if (got is None or got["keys"].numel() < n
+            or got["part_d"].numel() < entries):
+        rows = max(4096, n, 0 if got is None else got["keys"].numel())
+        size = max(entries, 1 << 20,
+                   0 if got is None else got["part_d"].numel())
+        got = _SCRATCH[key] = {
+            "keys": torch.full((rows,), -1, dtype=torch.int64, device=dev),
+            "counts": torch.zeros((rows,), dtype=torch.int32, device=dev),
+            "part_d": torch.empty((size,), dtype=torch.float32, device=dev),
+            "part_i": torch.empty((size,), dtype=torch.int32, device=dev),
+            "tickets": torch.zeros((_TICKETS * -(-rows // _BLOCK_N),),
+                                   dtype=torch.int32, device=dev)}
+    return got
 
 
 def topk_tile_loads(count: int, k_total: int, block_k: int = 128) -> int:
@@ -66,24 +146,6 @@ def _bucket(k: int) -> int:
     return b
 
 
-def _n_split(dev: torch.device, rows: int, items: int) -> int:
-    """Blocks along the candidate range: enough that the grid fills the
-    card about twice, at most one per candidate tile.  Depends only on the
-    shapes, never on the data; the result does not depend on it."""
-    sms = _sm_count(dev)
-    row_blocks = -(-rows // _BLOCK_N)
-    want = -(-_BLOCKS_PER_SM * sms // row_blocks)
-    return max(1, min(want, items))
-
-
-def _outputs(n: int, kk: int, k: int, n_split: int, dev):
-    part_d = torch.empty((n_split, n, kk), dtype=torch.float32, device=dev)
-    part_i = torch.empty((n_split, n, kk), dtype=torch.int32, device=dev)
-    d2 = torch.empty((n, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((n, k), dtype=torch.int32, device=dev)
-    return part_d, part_i, d2, idx
-
-
 def topk_stream(x: torch.Tensor, centers: torch.Tensor, mask: torch.Tensor,
                 count: torch.Tensor, k: int):
     """Launch the flat kernel.  x (N, D) f32, centers (K, D) f32, mask (K,)
@@ -104,13 +166,23 @@ def topk_stream(x: torch.Tensor, centers: torch.Tensor, mask: torch.Tensor,
     if mask.shape[0] != kc or count.numel() != 1:
         raise ValueError("mask must be (K,) and count one element")
     kk = _bucket(int(k))
-    n_split = _n_split(dev, n, max(1, -(-kc // BLOCK_K)))
-    part_d, part_i, d2, idx = _outputs(n, kk, int(k), n_split, dev)
+    sms = _sm_count(dev)
+    if kk == 1:   # the nearest-center kernel: its own tiles and split rule
+        bk, s = 0, _assign_n_split(n, kc, d, sms)
+    else:
+        bk, s = block_k(n, kc, d, sms), n_split(n, kc, d, sms)
+    d2 = torch.empty((n, int(k)), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, int(k)), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _fn("topk_stream_f32", 8, 6)(
+    ptrs = [0] * 4
+    if s > 1 and n > 0:
+        g = _scratch(dev, stream, n, n * (s + _groups(s)) * kk)
+        ptrs = [g[name].data_ptr() for name in
+                ("keys", "part_d", "part_i", "tickets")]
+    err = _fn("topk_stream_f32", 10, 7)(
         x.data_ptr(), centers.data_ptr(), mask.data_ptr(), count.data_ptr(),
-        part_d.data_ptr(), part_i.data_ptr(), d2.data_ptr(), idx.data_ptr(),
-        n, kc, d, kk, int(k), n_split, stream)
+        d2.data_ptr(), idx.data_ptr(), *ptrs, n, kc, d, kk, int(k), bk, s,
+        stream)
     if err != 0:
         raise RuntimeError(f"topk_stream launch failed: CUDA error {err}")
     return d2, idx
@@ -119,7 +191,8 @@ def topk_stream(x: torch.Tensor, centers: torch.Tensor, mask: torch.Tensor,
 def topk_multiprobe_stream(x: torch.Tensor, fine: torch.Tensor,
                            fine_ids: torch.Tensor, fine_mask: torch.Tensor,
                            cells: torch.Tensor, member: torch.Tensor,
-                           u_count: torch.Tensor, k: int):
+                           u_count: torch.Tensor, k: int,
+                           _stats: torch.Tensor | None = None):
     """Launch the multi-probe kernel.  x (B, D) f32; fine (n_cells, S, D)
     f32, fine_ids (n_cells, S) int32 flat ids, fine_mask (n_cells, S) bool;
     cells (U,) int32, the probed-cell union packed ascending with -1
@@ -127,7 +200,9 @@ def topk_multiprobe_stream(x: torch.Tensor, fine: torch.Tensor,
     (1,) or () int32 on the device, the union's real length (ranks at or
     past it are skipped without a host sync); 1 <= k <= 64.  Returns
     (d2 (B, k) f32, idx (B, k) int32 flat ids), (inf, -1) in exhausted
-    slots."""
+    slots.  `_stats`, a private hook for checks on the card: an int64
+    tensor of two counters the kernel adds to (distances formed; pair
+    lists appended)."""
     dev = x.device
     _check("x", x, (torch.float32,), 2, None)
     _check("fine", fine, (torch.float32,), 3, dev)
@@ -148,15 +223,26 @@ def topk_multiprobe_stream(x: torch.Tensor, fine: torch.Tensor,
     if tuple(member.shape) != (b, u) or u_count.numel() != 1:
         raise ValueError("member must be (B, U) and u_count one element")
     kk = _bucket(int(k))
-    n_split = _n_split(dev, b, max(1, u * -(-s_cap // BLOCK_K)))
-    part_d, part_i, d2, idx = _outputs(b, kk, int(k), n_split, dev)
+    s = mp_n_split(b, u, _sm_count(dev))
+    d2 = torch.empty((b, int(k)), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, int(k)), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _fn("topk_multiprobe_f32", 11, 7)(
+    stats = 0
+    if _stats is not None:
+        _check("_stats", _stats, (torch.int64,), 1, dev)
+        if _stats.numel() < 2:
+            raise ValueError("_stats needs two counters")
+        stats = _stats.data_ptr()
+    ptrs = [0] * 4
+    if b > 0:
+        g = _scratch(dev, stream, b, b * u * kk)
+        ptrs = [g[name].data_ptr() for name in
+                ("part_d", "part_i", "counts", "tickets")]
+    err = _fn("topk_multiprobe_f32", 14, 7)(
         x.data_ptr(), fine.data_ptr(), fine_ids.data_ptr(),
         fine_mask.data_ptr(), cells.data_ptr(), member.data_ptr(),
-        u_count.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
-        d2.data_ptr(), idx.data_ptr(), b, u, s_cap, d, kk, int(k), n_split,
-        stream)
+        u_count.data_ptr(), d2.data_ptr(), idx.data_ptr(), *ptrs, stats, b,
+        u, s_cap, d, kk, int(k), s, stream)
     if err != 0:
         raise RuntimeError(
             f"topk_multiprobe_stream launch failed: CUDA error {err}")
