@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,retrieval,serve,invariants,lm_serve]
+  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,lm_serve]
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
 (one process per source, in parallel), holds each against its plain
 PyTorch version on the card, runs the OCC DP-means pass of the paper's §4
-experiment and the repository's largest state (a 110k-center retrieval
+experiment, OCC OFL online over the same data, OCC BP-means at the paper's
+width, the paper's Figure 3 counts (held to the JAX package's, run for
+run) and the repository's largest state (a 110k-center retrieval
 index) through the port's public entry points, serves that index (flat
 and multi-probe top-k, score) through the port's serving plane, checks
 the port's bitwise invariants on the card, and serves the language model
@@ -32,8 +34,9 @@ import subprocess
 import sys
 import time
 
-ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper",
-              "retrieval", "serve", "invariants", "lm_serve")
+ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper", "ofl",
+              "bp_means", "fig3", "retrieval", "serve", "invariants",
+              "lm_serve")
 KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream",
            "flash_attention", "rmsnorm", "swiglu")
 SOURCES = ("dpmeans_assign", "topk_stream", "flash_attention", "rmsnorm",
@@ -46,6 +49,14 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # The paper's §4 clustering data (benchmarks/fig4_scaling.py).
 DP_N = 2**20
+# OFL over it opens tens of thousands of facilities: the pool's capacity.
+OFL_K_MAX = 131_072
+# The paper's §4 feature data for BP-means.
+BP_N = 2**18
+# Points behind the OFL and BP-means invariants on the card (cut from 8,192
+# and 4,096 to bring the ofl, bp_means and fig3 phases nearer 150 s).
+OFL_INV_N = 4096
+BP_INV_N = 2048
 # Distances agree to this fraction of ||x||^2 + ||c||^2: the scale of the
 # expanded form's cancellation (the kernel and torch.matmul sum D products
 # in different orders).
@@ -191,6 +202,8 @@ class Smoke:
         self.timings: list[dict] = []
         self.main_launches: dict[str, int | None] = dict.fromkeys(KERNELS)
         self.retrieval_launches: int | None = None
+        self.ofl_launches: int | None = None
+        self.fig3_launches: int | None = None
         self.lm_launches: dict[str, dict] = {}   # prefill / serve counts
         self.dp_x = None
         self.index = None          # (chunks numpy, trained pool)
@@ -371,6 +384,9 @@ class Smoke:
         from repro_torch.kernels.dpmeans_assign import dpmeans_assign
         cases = [
             ("paper", dict(n=2048, k=512, d=16, count=37)),
+            # OFL's propose: an epoch of the paper's data against the
+            # 131,072-slot pool, at the count its stream ends with
+            ("ofl", dict(n=2048, k=131072, d=16, count=100_790)),
             ("retrieval", dict(n=256, k=131072, d=16, count=110000)),
             ("score", dict(n=64, k=131072, d=16, count=110000)),
             ("routing", dict(n=110000, k=512, d=16, count=512)),
@@ -409,8 +425,8 @@ class Smoke:
               "count0: (inf, -1)")
         # Row independence: each row alone, and the batch reversed, give the
         # same bits as the batch (at the retrieval shape a row alone runs
-        # with 256 splits, the batch with 66).
-        for name in ("paper", "retrieval"):
+        # with 256 splits, the batch with 66; at OFL's, the batch with 9).
+        for name in ("paper", "retrieval", "ofl"):
             (x, c, mask, cnt), (d2b, ib) = outs[name]
             alone = [dpmeans_assign(x[r:r + 1].contiguous(), c, mask, cnt)
                      for r in range(x.shape[0])]
@@ -452,6 +468,7 @@ class Smoke:
               "max_abs_err": self.max_abs_err["dpmeans_assign"],
               "ptxas": self._ptxas_checked("dpmeans_assign")})
         self._time("paper", *outs["paper"][0])
+        self._time("ofl", *outs["ofl"][0])
         self._time("retrieval", *outs["retrieval"][0], sibling=True)
         self._time("score", *outs["score"][0], sibling=True)
         self._time("routing", *outs["routing"][0], sibling=True)
@@ -806,7 +823,8 @@ class Smoke:
         for p, st, c0 in zip(passes, stats, count0):
             p["kernel_replayed"] = self._replay_kernel(
                 x, 2048, pool, c0, st.accepted, p["seconds"])
-        share = self._kernel_share(eng, x, pool, passes[-1]["seconds"])
+        share = self._kernel_share(lambda: eng.run(x, pool=pool),
+                                   passes[-1]["seconds"])
         emit({"phase": "dp_paper", "n": x.shape[0], "d": x.shape[1],
               "lam": 4.0, "k_max": 512, "pb": 2048,
               "validate_cap": "adaptive", "K": k, "J": j,
@@ -814,17 +832,18 @@ class Smoke:
               "n_dispatches": eng.n_dispatches,
               "n_cap_retries": eng.n_cap_retries, **share})
 
-    def _kernel_share(self, eng, x, pool, pass_s: float) -> dict:
-        """Device time by kernel over one more warm pass like the last one,
-        from torch.profiler (after the main path's counts were read).  The
-        profiler slows the host several times over, so shares are taken
-        against `pass_s`, the same pass's unprofiled wall time."""
+    def _kernel_share(self, run, pass_s: float) -> dict:
+        """Device time by kernel over `run()`, one more warm pass like the
+        last one, from torch.profiler (after the main path's counts were
+        read).  The profiler slows the host several times over, so shares
+        are taken against `pass_s`, the same pass's unprofiled wall time.
+        It records device activity only: the host's events would add
+        nothing to the device totals and triple the trace's processing."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            eng.run(x, pool=pool)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         tot = kern = 0.0
@@ -872,6 +891,383 @@ class Smoke:
                 "kernel_share_of_pass": ms / 1e3 / pass_s,
                 "first_count": int(counts[0]), "last_count": int(counts[-1]),
                 "queued_ahead": ahead}
+
+    # --------------------------------------------------------------- ofl
+    def ofl(self):
+        """OCC OFL online over the paper's data: `partial_fit` in 16
+        batches of 65,536 points and a `flush`, adaptive cap, the propose
+        phase on `dpmeans_assign`; then the port's OFL invariants on the
+        card over the first `OFL_INV_N` points."""
+        torch = self.torch
+        from repro_torch.core import OCCEngine, OFLTransaction
+        from repro_torch.kernels import ops
+        x = torch.as_tensor(self._dp_data(), device=self.dev)
+        key = (0, self.seed)
+        eng = OCCEngine(OFLTransaction(4.0, OFL_K_MAX, key), pb=2048,
+                        validate_cap="adaptive", device="cuda")
+        batch = x.shape[0] // 16
+        torch.cuda.synchronize()
+        # --- the main path: counts from 0 just before, read just after ---
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        calls = []
+        for b in range(16):
+            tb = time.perf_counter()
+            eng.partial_fit(x[b * batch:(b + 1) * batch])
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - tb)
+        flushed = eng.flush()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.ASSIGN_LAUNCHES
+        # -----------------------------------------------------------------
+        self.ofl_launches = launches
+        pool, st = eng.pool, eng.stats
+        k = int(pool.count)
+        check(launches == eng.n_epochs_dispatched and launches > 0,
+              f"ofl: {launches} kernel launches for "
+              f"{eng.n_epochs_dispatched} epochs dispatched")
+        check(eng.n_processed == x.shape[0] and flushed is None,
+              "ofl: every point committed")
+        check(not bool(pool.overflow), f"ofl: no overflow at K_max "
+              f"{OFL_K_MAX} (K={k})")
+        check(1 <= k < OFL_K_MAX and bool(torch.isfinite(pool.centers).all()),
+              "ofl: 1 <= K < K_max, finite centers")
+        line = {"phase": "ofl", "n": x.shape[0], "d": x.shape[1], "lam": 4.0,
+                "k_max": OFL_K_MAX, "pb": 2048, "key": list(key),
+                "validate_cap": "adaptive", "batches": 16, "K": k,
+                "proposed": int(st.proposed.sum()),
+                "accepted": int(st.accepted.sum()),
+                "epochs": eng.epochs_done,
+                "epochs_dispatched": eng.n_epochs_dispatched,
+                "caps": sorted({int(c) for c in st.cap.tolist()}),
+                "cap_history": eng.cap_history,
+                "n_cap_retries": eng.n_cap_retries, "seconds": seconds,
+                "call_seconds": calls, "assign_launches": launches,
+                "kernel_replayed": self._replay_kernel(
+                    x, 2048, pool, 0, st.accepted, seconds)}
+        # the kernel against its plain version at the propose shape, on the
+        # stream's last epoch and the trained pool
+        self._compare("ofl_trained_pool", x[-2048:], pool.centers, pool.mask,
+                      pool.count)
+        line["invariants"] = inv = self._ofl_invariants(x[:OFL_INV_N], pool)
+        emit(line)
+        for name in ("stream_eq_oneshot", "adaptive_eq_full",
+                     "logdepth_eq_serial", "occ_eq_serial_ofl",
+                     "plain_eq_kernel"):
+            check(inv[name], f"ofl: {name}")
+
+    def _ofl_invariants(self, x, warm_pool) -> dict:
+        """The port's OFL invariants on the card, bitwise: a stream cut at
+        ragged points equals the one-shot run, the adaptive cap equals the
+        full cap (two passes from the trained pool, where the cap shrinks),
+        the log-depth scan equals the serial one, the OCC run equals
+        serial OFL along its epoch-index order (K and centers), and the run
+        equals the same run with propose on the plain version (assignments,
+        sends, pool and counts)."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.core import (
+            OCCEngine, OFLTransaction, point_uniforms, serial_ofl,
+        )
+        from repro_torch.core.occ import nearest_center
+        from repro_torch.core.ofl import _send_prob
+
+        class PlainOFL(OFLTransaction):
+            """The same transaction with propose on the plain version."""
+            def propose(self, pool, x_e, u_e):
+                d2, idx = nearest_center(pool, x_e, backend="plain")
+                return (u_e < _send_prob(d2, self.lam), x_e, (u_e, d2, idx),
+                        idx)
+        n, key = x.shape[0], (0, self.seed)
+        t0 = time.perf_counter()
+        secs = {}
+
+        def engine(txn_cls=OFLTransaction, **kw):
+            return OCCEngine(txn_cls(4.0, OFL_K_MAX, key), 2048,
+                             device="cuda", **kw)
+        one = engine().run(x)
+        es = engine()
+        cuts = (0, 100, 137, 412, 2049, 3001, n)
+        parts = [es.partial_fit(x[a:b]) for a, b in zip(cuts, cuts[1:])]
+        parts = [p for p in parts + [es.flush()] if p is not None]
+        out = {"n": n, "stream_eq_oneshot": bool(
+            all(torch.equal(torch.cat([getattr(p, f) for p in parts]),
+                            getattr(one, f))
+                for f in ("assign", "send", "epoch_of"))
+            and _same(es.pool, one.pool)
+            and torch.equal(es.stats.proposed, one.stats.proposed))}
+        runs = {}
+        for name, kw in (("full", {}),
+                         ("adaptive", {"validate_cap": "adaptive"})):
+            eng = engine(**kw)
+            r1 = eng.run(x, pool=warm_pool)
+            runs[name] = (r1, eng.run(x, pool=r1.pool), eng)
+        out["adaptive_caps"] = runs["adaptive"][2].cap_history
+        out["adaptive_eq_full"] = bool(
+            runs["adaptive"][2].cap_history[-1] is not None
+            and all(_same(a, b) for a, b in
+                    zip(runs["full"][:2], runs["adaptive"][:2])))
+        secs["stream_and_caps"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        out["logdepth_eq_serial"] = _same(
+            one, engine(scan_mode="logdepth").run(x))
+        secs["logdepth"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        plain = engine(PlainOFL).run(x)
+        out["plain_eq_kernel"] = _same(plain, one)
+        out["plain_vs_kernel"] = {
+            "K_kernel": int(one.pool.count), "K_plain": int(plain.pool.count),
+            "assign_mismatches": int((plain.assign != one.assign).sum()),
+            "send_mismatches": int((plain.send != one.send).sum())}
+        secs["plain"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        order = torch.as_tensor(np.lexsort((np.arange(n),
+                                            one.epoch_of.cpu().numpy())),
+                                device=self.dev)
+        u = point_uniforms(key, n, device="cuda")
+        spool, _ = serial_ofl(x[order], u[order], 4.0, OFL_K_MAX,
+                              device="cuda")
+        k = int(one.pool.count)
+        out["K"] = k
+        out["occ_eq_serial_ofl"] = bool(
+            int(spool.count) == k
+            and torch.equal(spool.centers[:k], one.pool.centers[:k]))
+        secs["serial_ofl"] = time.perf_counter() - t1
+        out["seconds"] = time.perf_counter() - t0
+        out["part_seconds"] = secs
+        return out
+
+    # ---------------------------------------------------------- bp_means
+    def bp_means(self):
+        """OCC BP-means at the paper's width: pass, refine, pass over
+        `bp_stick_breaking_data(2**18)` (D = 16, λ = 4, K_max = 512,
+        Pb = 2048, adaptive cap), with TF32 off; the Gram-carry scan's
+        launches a step; the device's idle share over a warm pass; then the
+        port's BP invariants on the card over `BP_INV_N` points."""
+        torch = self.torch
+        from repro_torch.core import BPMeansTransaction, OCCEngine
+        from repro_torch.data import bp_stick_breaking_data
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "bp_means: TF32 is off")
+        x_np, z_true, _ = bp_stick_breaking_data(BP_N, seed=self.seed)
+        x = torch.as_tensor(x_np, device=self.dev)
+        txn = BPMeansTransaction(4.0, 512)
+        eng = OCCEngine(txn, pb=2048, validate_cap="adaptive", device="cuda")
+        z = txn.make_state(x)
+        pool = None
+        passes = []
+        torch.cuda.synchronize()
+        for p in range(2):
+            e0 = eng.n_epochs_dispatched
+            t0 = time.perf_counter()
+            res = eng.run(x, pool=pool, state=z)
+            torch.cuda.synchronize()
+            t_pass = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pool = eng.refine(res.pool, x, res.assign)
+            torch.cuda.synchronize()
+            t_refine = time.perf_counter() - t0
+            z = res.assign
+            passes.append({
+                "pass": p + 1, "seconds": t_pass, "refine_seconds": t_refine,
+                "epochs": int(res.stats.proposed.shape[0]),
+                "epochs_dispatched": eng.n_epochs_dispatched - e0,
+                "K": int(res.pool.count),
+                "proposed": int(res.stats.proposed.sum()),
+                "accepted": int(res.stats.accepted.sum()),
+                "caps": sorted({int(c) for c in res.stats.cap.tolist()}),
+                "overflow": bool(res.pool.overflow)})
+        k = int(pool.count)
+        obj = float(txn.objective(x, z, pool))
+        check(not any(p["overflow"] for p in passes), "bp_means: no overflow")
+        check(2 <= k < 512, f"bp_means: 2 <= K={k} < 512")
+        check(bool(torch.isfinite(pool.centers[:k]).all())
+              and math.isfinite(obj), "bp_means: finite features and "
+              "objective")
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "bp_means: TF32 stayed off")
+        line = {"phase": "bp_means", "n": x.shape[0], "d": x.shape[1],
+                "lam": 4.0, "k_max": 512, "pb": 2048,
+                "validate_cap": "adaptive", "true_features": int(
+                    z_true.shape[1]), "K": k, "objective": obj,
+                "passes": passes, "n_dispatches": eng.n_dispatches,
+                "n_cap_retries": eng.n_cap_retries, "tf32": False,
+                "gram_scan": self._gram_scan_launches(x, txn)}
+        # the idle share over the first 16 epochs of a warm pass like the
+        # last one (every epoch of it does the same work)
+        xw, zw = x[:16 * 2048], z[:16 * 2048]
+        eng.run(xw, pool=pool, state=zw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run(xw, pool=pool, state=zw)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        line["profiled_epochs"] = 16
+        line.update(self._kernel_share(
+            lambda: eng.run(xw, pool=pool, state=zw), warm_s))
+        line["invariants"] = inv = self._bp_invariants(x[:BP_INV_N])
+        emit(line)
+        for name in ("gram_eq_refit_reference", "occ_eq_serial_pass",
+                     "stream_eq_oneshot"):
+            check(inv[name], f"bp_means: {name}")
+
+    def _gram_scan_launches(self, x, txn) -> dict:
+        """The Gram-carry validator on the first epoch of a cold pass (the
+        epoch with the most proposals), under torch.profiler: device
+        kernels and copies per scan step, against its design (a step's
+        verdict and its copy to the host, 9 for each refit against a
+        feature accepted before it this epoch (cuBLAS's dot is two
+        kernels), 2 an append); the rest is the epoch's fixed work.  Host
+        syncs are the profile's device-to-host copies, beside the design's
+        one a sent step and one an epoch."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.core.occ import precomputed_gather_validate
+        x_e = x[:2048]
+        pool = txn.init_pool(x_e)
+        send, payload, aux, _ = txn.propose(pool, x_e, txn.make_state(x_e))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        precomputed_gather_validate(pool, send, payload, aux,
+                                    txn.precompute_accept, txn.accept_pre)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, slots, _, _ = precomputed_gather_validate(
+                pool, send, payload, aux, txn.precompute_accept,
+                txn.accept_pre)
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        kernels = sum(c for _, _, c in events)
+        # Each read of a device value on the host (`bool()`, `.tolist()`,
+        # `nonzero`'s size) is a synchronous device-to-host copy.
+        syncs = sum(c for name, _, c in events if "DtoH" in name)
+        acc = (slots[send] >= 0).to(torch.int64)
+        steps = int(send.sum())
+        fits = int((torch.cumsum(acc, 0) - acc).sum())
+        return {"epoch": 0, "steps": steps, "accepted": int(acc.sum()),
+                "refits": fits, "seconds": wall, "device_kernels": kernels,
+                "kernels_per_step": kernels / max(steps, 1),
+                "design_kernels": 2 * steps + 9 * fits + 2 * int(acc.sum()),
+                "host_syncs": syncs, "design_host_syncs": steps + 1}
+
+    def _bp_invariants(self, x) -> dict:
+        """The port's BP invariants on the card: the Gram scan's decisions
+        equal the D-dimensional refit reference's (features within 1e-4 of
+        the largest), the OCC pass equals the serial pass along its Thm-3.1
+        permutation (assignments and K; features within 1e-4 after a
+        re-estimate), and a stream with init_mean equals the one-shot run
+        bit for bit."""
+        torch = self.torch
+        from repro_torch.core import (
+            BPMeansTransaction, OCCEngine, serial_bp_means_pass,
+            thm31_permutation,
+        )
+        from repro_torch.core._reference import reference_pass
+        from repro_torch.core.bp_means import _reestimate
+        n, pb, k_max = x.shape[0], 256, 512
+        txn = BPMeansTransaction(4.0, k_max)
+        t0 = time.perf_counter()
+        secs = {}
+        pool0, z0 = txn.init_pool(x[:pb]), txn.make_state(x)
+        fast = OCCEngine(txn, pb, device="cuda").run(x, pool=pool0, state=z0)
+        rp, ra, rs, rst = reference_pass(txn, pool0, x, state=z0, pb=pb)
+        scale = max(1.0, float(rp.centers.abs().max()))
+        feat_err = float((fast.pool.centers - rp.centers).abs().max())
+        out = {"n": n, "pb": pb, "K": int(fast.pool.count),
+               "refit_feature_max_abs_err": feat_err}
+        out["gram_eq_refit_reference"] = bool(
+            torch.equal(fast.assign, ra) and torch.equal(fast.send, rs)
+            and torch.equal(fast.stats.proposed, rst.proposed)
+            and torch.equal(fast.stats.accepted, rst.accepted)
+            and all(torch.equal(getattr(fast.pool, f), getattr(rp, f))
+                    for f in ("mask", "count", "overflow"))
+            and feat_err <= 1e-4 * scale)
+        secs["refit_reference"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        perm = torch.as_tensor(thm31_permutation(fast, n), device=self.dev)
+        spool, sz = serial_bp_means_pass(x[perm], 4.0, k_max, pool=pool0,
+                                         z=z0, device="cuda")
+        k = int(fast.pool.count)
+        spool = _reestimate(x[perm], sz, spool)
+        fpool = _reestimate(x, fast.assign, fast.pool)
+        ser_err = float((spool.centers[:k] - fpool.centers[:k]).abs().max())
+        out["serial_feature_max_abs_err"] = ser_err
+        out["occ_eq_serial_pass"] = bool(
+            int(spool.count) == k and torch.equal(sz, fast.assign[perm])
+            and ser_err <= 1e-4)
+        secs["serial_pass"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        one = OCCEngine(txn, pb, device="cuda").run(x)
+        es = OCCEngine(txn, pb, device="cuda")
+        cuts = (0, 1, 100, 1000, 1537, n)
+        parts = [es.partial_fit(x[a:b]) for a, b in zip(cuts, cuts[1:])]
+        parts = [p for p in parts + [es.flush()] if p is not None]
+        out["stream_eq_oneshot"] = bool(
+            all(torch.equal(torch.cat([getattr(p, f) for p in parts]),
+                            getattr(one, f))
+                for f in ("assign", "send", "epoch_of"))
+            and _same(es.pool, one.pool))
+        secs["stream"] = time.perf_counter() - t1
+        out["seconds"] = time.perf_counter() - t0
+        out["part_seconds"] = secs
+        return out
+
+    # -------------------------------------------------------------- fig3
+    def fig3(self):
+        """The paper's Figure 3 on the card: the runs of
+        `benchmarks/fig3_rejections.run` for repeats 0-2, each run's
+        proposed and accepted totals equal to the JAX package's.  The grid,
+        each run's settings (entry point, data, λ, k_max, OFL's key) and the
+        counts come from the golden file, made on the CPU from the JAX
+        package by `tests/test_torch_fig3.py`, which also holds its grid and
+        settings to the benchmark."""
+        from repro_torch.kernels import ops
+        root = os.path.dirname(os.path.abspath(__file__))
+        with open(os.path.join(root, "tests", "golden",
+                               "torch_fig3_counts.json")) as f:
+            golden = json.load(f)
+        grid, repeats = golden["grid"], golden["repeats"]
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        cells, bad, epochs = [], [], 0
+        for algo in grid["algos"]:
+            for pb in grid["pbs"]:
+                for n in grid["ns"]:
+                    want = golden["runs"][f"{algo}/pb{pb}/n{n}"]
+                    got = [_fig3_run(s, pb, n) for s in want["settings"]]
+                    if want["settings"][0]["entry"] != "occ_bp_means":
+                        epochs += len(repeats) * math.ceil(n / pb)
+                    rej = [p - a for p, a in got]
+                    mean = sum(rej) / len(rej)
+                    cells.append({"algo": algo, "pb": pb, "n": n,
+                                  "rejections": rej, "mean": mean,
+                                  "le_pb": mean <= pb})
+                    for i, (s, (p, a)) in enumerate(zip(want["settings"],
+                                                        got)):
+                        if [p, a] != [want["proposed"][i],
+                                      want["accepted"][i]]:
+                            bad.append({"algo": algo, "pb": pb, "n": n,
+                                        "repeat": repeats[i], "settings": s,
+                                        "port": [p, a],
+                                        "jax": [want["proposed"][i],
+                                                want["accepted"][i]]})
+        launches = ops.ASSIGN_LAUNCHES
+        self.fig3_launches = launches
+        seconds = time.perf_counter() - t0
+        for b in bad[:10]:
+            b["min_margin"] = _fig3_margin(b["settings"], b["pb"], b["n"])
+        emit({"phase": "fig3", "grid": grid, "repeats": repeats,
+              "reduced": f"repeats {repeats[0]}-{repeats[-1]} of the "
+                         f"benchmark's {golden['benchmark_repeats']}",
+              "runs": len(cells) * len(repeats), "mismatches": bad,
+              "cells": cells, "assign_launches": launches,
+              "seconds": seconds})
+        check(not bad, f"fig3: {len(bad)} runs differ from the JAX package's "
+              "counts")
+        check(launches == epochs, f"fig3: {launches} kernel launches for "
+              f"{epochs} DP-means and OFL epochs")
 
     # --------------------------------------------------------- retrieval
     def retrieval(self):
@@ -1302,21 +1698,14 @@ class Smoke:
             pool2 = eng.refine(r2.pool, x, r2.assign)
             return (r1, r2, pool2), eng
 
-        def same(a, b):
-            # results, pools and the sent / accepted counts; not the caps,
-            # which differ by design between cap settings
-            la, lb = _leaves(a), _leaves(b)
-            return len(la) == len(lb) and all(
-                torch.equal(u, v) for u, v in zip(la, lb))
-
         t0 = time.perf_counter()
         full, _ = two_passes()
         again, _ = two_passes()
         adaptive, eng_a = two_passes(validate_cap="adaptive")
         logd, _ = two_passes(scan_mode="logdepth")
-        res = {"determinism": same(full, again),
-               "adaptive_eq_full": same(full, adaptive),
-               "logdepth_eq_serial": same(full, logd),
+        res = {"determinism": _same(full, again),
+               "adaptive_eq_full": _same(full, adaptive),
+               "logdepth_eq_serial": _same(full, logd),
                "adaptive_caps": eng_a.cap_history,
                "adaptive_retries": eng_a.n_cap_retries}
         # stream in ragged pieces + flush == one-shot first pass
@@ -1330,7 +1719,7 @@ class Smoke:
             torch.equal(torch.cat([p.assign for p in parts]), r1.assign)
             and torch.equal(torch.cat([p.send for p in parts]), r1.send)
             and torch.equal(torch.cat([p.epoch_of for p in parts]), r1.epoch_of)
-            and same(eng_s.pool, r1.pool)
+            and _same(eng_s.pool, r1.pool)
             and torch.equal(eng_s.stats.proposed, r1.stats.proposed)
             and torch.equal(eng_s.stats.accepted, r1.stats.accepted))
         # Thm 3.1: the OCC pass equals the serial pass along its permutation
@@ -1341,7 +1730,7 @@ class Smoke:
         pt = torch.as_tensor(thm31_permutation(r4, 4096), device=self.dev)
         spool, sz = serial_dp_means_pass(x4[pt], lam, k_max, device="cuda")
         res["thm31_serial_eq_occ"] = (
-            torch.equal(sz, r4.assign[pt]) and same(spool, r4.pool)
+            torch.equal(sz, r4.assign[pt]) and _same(spool, r4.pool)
             and torch.equal(occ.z, r4.assign))
         # the CUDA-backed pass vs the same pass on the plain version
         plain, _ = two_passes(PlainDPMeans)
@@ -2053,6 +2442,8 @@ class Smoke:
                    "max_abs_err": self.max_abs_err[name]}
             if name == "dpmeans_assign":
                 row["launches_retrieval"] = self.retrieval_launches
+                row["launches_ofl"] = self.ofl_launches
+                row["launches_fig3"] = self.fig3_launches
             if name in ("flash_attention", "rmsnorm", "swiglu"):
                 row["launches_by_path"] = {
                     path: c[name] for path, c in self.lm_launches.items()}
@@ -2070,6 +2461,75 @@ class Smoke:
             row["shapes"] = shapes
             rows.append(row)
         return rows
+
+
+def _same(a, b) -> bool:
+    """Two result trees hold equal tensors: results, pools and the sent /
+    accepted counts, not the caps, which differ by design between cap
+    settings."""
+    import torch
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(u, v)
+                                      for u, v in zip(la, lb))
+
+
+def _fig3_x(s: dict, n: int):
+    """A Figure 3 run's data, from its settings in the golden file."""
+    from repro_torch import data
+    return getattr(data, s["data"])(n, seed=s["seed"])[0]
+
+
+def _fig3_run(s: dict, pb: int, n: int):
+    """(proposed, accepted) totals of one Figure 3 run on the card, through
+    the entry point its settings name; OFL's key is the raw key data (0, r)
+    of `jax.random.key(r)`."""
+    from repro_torch import core
+    kw = ({"key": tuple(s["key"])} if s["key"] is not None
+          else {"max_iters": 1})
+    res = getattr(core, s["entry"])(_fig3_x(s, n), s["lam"], pb=pb,
+                                    k_max=s["k_max"], device="cuda", **kw)
+    return int(res.stats.proposed.sum()), int(res.stats.accepted.sum())
+
+
+def _fig3_margin(s: dict, pb: int, n: int) -> float:
+    """The smallest decision margin of one Figure 3 run, over its propose
+    and validator decisions: |d²/λ² − u| (OFL), |d² − λ²| (DP-means),
+    |‖r‖² − λ²| (BP-means).  The run is repeated with a transaction that
+    records them."""
+    import torch
+    from repro_torch.core import (
+        BPMeansTransaction, DPMeansTransaction, OCCEngine, OFLTransaction,
+    )
+    from repro_torch.core.dp_means import _lam2
+    algo = {"occ_ofl": "ofl", "occ_bp_means": "bpmeans"}.get(
+        s["entry"], "dpmeans")
+    lam2 = _lam2(s["lam"], torch.float32)
+    margins = []
+
+    def record(v, u=None):
+        m = (v / lam2 - u) if u is not None else (v - lam2)
+        margins.append(float(m.abs().min()))
+    base = {"ofl": OFLTransaction, "bpmeans": BPMeansTransaction}.get(
+        algo, DPMeansTransaction)
+
+    class Recording(base):
+        def propose(self, pool, x_e, state_e):
+            out = base.propose(self, pool, x_e, state_e)
+            if algo == "ofl":
+                record(out[2][1], out[2][0])
+            elif algo == "bpmeans":
+                record(torch.sum(out[1] * out[1], dim=-1))
+            else:
+                record(out[2][0])
+            return out
+
+        def accept_pre(self, v, aux_j):
+            record(v, aux_j if algo == "ofl" else None)
+            return base.accept_pre(self, v, aux_j)
+    txn = Recording(s["lam"], s["k_max"], tuple(s["key"])) \
+        if algo == "ofl" else Recording(s["lam"], s["k_max"])
+    OCCEngine(txn, pb, device="cuda").run(_fig3_x(s, n))
+    return min(margins)
 
 
 def _flash_bf16_p(torch, q, k, v, causal: bool):

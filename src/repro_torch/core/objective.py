@@ -1,6 +1,7 @@
 """Objectives from the paper.
 
 J(C) = sum_x min_{mu in C} ||x - mu||^2 + lambda^2 |C|        (Eq. 5, DP-means / FL)
+BP-means cost = sum_i ||x_i - Z_i F||^2 + lambda^2 K          (MAD-Bayes / BP-means)
 
 Plain products outside any kernel: on the card `torch.matmul` runs in full
 f32 as long as `torch.backends.cuda.matmul.allow_tf32` stays False (the
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sq_dists", "dp_means_objective"]
+__all__ = ["sq_dists", "dp_means_objective", "bp_means_objective"]
 
 
 def sq_dists(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
@@ -31,3 +32,15 @@ def dp_means_objective(x: torch.Tensor, centers: torch.Tensor, lam: float,
     else:
         k = centers.shape[0]
     return torch.sum(torch.min(d2, dim=-1).values) + lam * lam * k
+
+
+def bp_means_objective(x: torch.Tensor, z: torch.Tensor, feats: torch.Tensor,
+                       lam: float, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """BP-means cost: ||X - Z F||_F^2 + lambda^2 K."""
+    if mask is not None:
+        z = z & mask[None, :]
+        k = torch.sum(mask)
+    else:
+        k = feats.shape[0]
+    resid = x - z.to(x.dtype) @ feats
+    return torch.sum(resid * resid) + lam * lam * k

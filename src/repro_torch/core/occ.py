@@ -15,6 +15,9 @@ What changed against the JAX version:
   * The log-depth resolution's `while_loop` tests its condition on the host
     (one sync per round), and its overflow fallback is a Python `if` on one
     synced bool per epoch.
+  * The BP-means Gram-carry scan (`precomputed_validate_gram`) keeps its
+    inner trip count on the host: one host read an epoch (the sent slots
+    and the pool count) and one a sent step (its verdict).
   * `.at[].set(mode="drop")` becomes a write into a copy of the buffer with
     one spare row that takes the dropped writes.
   * Functions never modify the pool they are given, except
@@ -38,7 +41,7 @@ __all__ = [
     "CenterPool", "make_pool", "pool_append_serial", "block_epochs",
     "next_pow2", "serial_validate", "nearest_center",
     "nearest_center_with_new", "OCCStats", "ValidatePre",
-    "precomputed_validate", "logdepth_validate",
+    "precomputed_validate", "precomputed_validate_gram", "logdepth_validate",
     "precomputed_gather_validate", "effective_cap", "tree_map",
 ]
 
@@ -243,8 +246,9 @@ class ValidatePre(NamedTuple):
     idx_start: (cap,)  int32 — that center's slot, -1 when the pool is empty.
     pair_d2:   (cap, cap)  payload pairwise squared distances.
     aux:       per-proposal decision scalars (leading dim cap), or None.
-    gram:      payload Gram matrix of Gram-append transactions (BP-means, a
-               later slice); None here.
+    gram:      (cap, cap)  payload inner products r_i · r_j of Gram-append
+               transactions (BP-means, whose d2_start / idx_start /
+               pair_d2 stay None); None for payload-append ones.
     """
     d2_start: torch.Tensor | None
     idx_start: torch.Tensor | None
@@ -378,6 +382,92 @@ def logdepth_validate(
             slots_c, refs_c)
 
 
+def precomputed_validate_gram(
+    pool: CenterPool,
+    send_c: torch.Tensor,           # (cap,) bool — compacted proposal flags
+    payload_c: torch.Tensor,        # (cap, D) — compacted payload residuals
+    pre: ValidatePre,
+    decide_fn: Callable[[torch.Tensor, Any], torch.Tensor],
+) -> tuple[CenterPool, torch.Tensor, torch.Tensor]:
+    """The BP-means serializing scan with ZERO D-dimensional work per step
+    — the Gram-carry path.
+
+    BPValidate (Alg. 8) refits each proposed residual r_j against the
+    features accepted earlier this epoch and appends what remains.  Each
+    such feature is a signed combination of sent payloads, so the scan
+    carries each accepted feature's coefficient row c_m and its G-row
+    g_m = G c_m, and takes every refit dot product from the payload Gram
+    matrix G (`pre.gram`): r · f_m = (G a) · c_m with a the running
+    residual's coefficients, ‖f_m‖² is the residual norm² carried from m's
+    own acceptance, and ‖r - f‖² = ‖r‖² - 2 r·f + ‖f‖².  The accepted
+    residuals are materialised after the scan in one `coef @ payload`.
+
+    The reference's inner `fori_loop(0, nacc, …)` has its trip count on
+    the device.  Here it is a Python int: the scan reads the sent slots and
+    the pool count once an epoch, and each sent step's verdict once, so a
+    step costs one launch (the verdict) plus 8 for each feature accepted
+    before it this epoch (9 kernels on the card, where the dot is two), 2
+    more when it appends, and one host sync.  A
+    bound known on the host instead (every sent step before j) would cost
+    O(sent²) launches an epoch.  Unsent compacted slots are
+    skipped: they cannot append, and `writeback` discards their fit rows,
+    which stay False here.  All vectors live on the sent slots only, so a
+    step's arithmetic does not depend on the window's width (adaptive cap
+    ≡ full cap bit for bit).
+
+    Returns (pool', slots_c (cap,) int32, z_c (cap, K_max) bool — each sent
+    proposal's fit against this epoch's accepted features, at their pool
+    slots).  Against the D-dimensional refit reference the decisions are
+    identical and the features agree to float reassociation.
+    """
+    cap = send_c.shape[0]
+    k_max = pool.centers.shape[0]
+    dev = send_c.device
+    sent_t = torch.nonzero(send_c).flatten()
+    count0, *sent = torch.cat([pool.count.reshape(1).long(), sent_t]).tolist()
+    n_s = len(sent)
+    g = pre.gram[sent_t][:, sent_t]
+    aux = pre.aux
+    # Row p of `start` is the running state s = [a | u] of sent step p
+    # before its refit: a = e_p, u = G a = g[p].  Accepted features keep the
+    # same layout in `feat`: [c_m | g_m].
+    start = torch.cat([torch.eye(n_s, dtype=g.dtype, device=dev), g], 1)
+    feat = torch.zeros((n_s, 2 * n_s), dtype=g.dtype, device=dev)
+    fnorm2 = torch.zeros((n_s,), dtype=g.dtype, device=dev)
+    z_s = torch.zeros((n_s, n_s), dtype=torch.bool, device=dev)
+    slots = [-1] * n_s
+    nacc, overflow = 0, False
+    for p, j in enumerate(sent):
+        s, rn2 = start[p], g[p, p]     # views: every update makes a new tensor
+        for m in range(nacc):
+            dot = torch.dot(s[n_s:], feat[m, :n_s])
+            dot2 = dot * 2.0
+            z_m = torch.gt(dot2, fnorm2[m], out=z_s[p, m])
+            s = torch.where(z_m, s - feat[m], s)
+            rn2 = torch.where(z_m, rn2 - dot2 + fnorm2[m], rn2)
+        if not bool(decide_fn(rn2, tree_map(lambda a: a[j], aux))):
+            continue
+        if count0 + nacc >= k_max:
+            overflow = True
+            continue
+        feat[nacc] = s
+        fnorm2[nacc] = rn2
+        slots[p] = count0 + nacc
+        nacc += 1
+
+    slots_c = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    slots_c[sent_t] = torch.tensor(slots, dtype=torch.int32).to(dev)
+    z_c = torch.zeros((cap, k_max), dtype=torch.bool, device=dev)
+    z_c[sent_t, count0:count0 + nacc] = z_s[:, :nacc]
+    feats = feat[:nacc, :n_s] @ payload_c[sent_t]
+    centers = pool.centers.clone()
+    centers[count0:count0 + nacc] = feats.to(centers.dtype)
+    mask = pool.mask.clone()
+    mask[count0:count0 + nacc] = True
+    return (CenterPool(centers, mask, pool.count + nacc,
+                       pool.overflow | overflow), slots_c, z_c)
+
+
 def precomputed_gather_validate(
     pool: CenterPool,
     send: torch.Tensor,
@@ -392,9 +482,9 @@ def precomputed_gather_validate(
 
     Compacts the sent proposals (stable order == global index order), runs
     `precompute_fn(pool, payload_c, aux_c, count0)` once, then the D-free
-    serializing resolution picked by `scan_mode`, then scatters verdicts
-    back to the full index space.  Returns (pool', slots, refs,
-    sent_overflow)."""
+    serializing resolution (`pre.gram` set: the Gram-carry scan; else the
+    one `scan_mode` picks), then scatters verdicts back to the full index
+    space.  Returns (pool', slots, refs, sent_overflow)."""
     b = send.shape[0]
     count0 = pool.count
     cap_c = effective_cap(cap, b)
@@ -404,9 +494,8 @@ def precomputed_gather_validate(
     aux_c = tree_map(lambda a: a[order], aux)
     pre = precompute_fn(pool, payload_c, aux_c, count0)
     if pre.gram is not None:
-        raise NotImplementedError("the Gram-carry validator (BP-means) is not "
-                                  "ported yet")
-    if scan_mode == "logdepth":
+        validate = precomputed_validate_gram
+    elif scan_mode == "logdepth":
         validate = logdepth_validate
     elif scan_mode == "serial":
         validate = precomputed_validate

@@ -2,9 +2,10 @@
 
 An AST scan of every module of `src/repro_torch/` and of `chip_smoke.py`,
 and a subprocess in which `jax` and `repro` cannot be imported at all that
-imports the port, runs a tiny pass on the CPU, publishes it and serves one
-top-k query from it, then builds `reduced(qwen3-4b)` on the CPU and
-serves two requests through the language model's `ServeEngine`.
+imports the port, runs a tiny pass on the CPU (DP-means, OFL and
+BP-means), publishes it and serves one top-k query from it, then builds
+`reduced(qwen3-4b)` on the CPU and serves two requests through the
+language model's `ServeEngine`.
 """
 import ast
 import os
@@ -57,6 +58,13 @@ res = OCCEngine(DPMeansTransaction(4.0, 64), 64, device="cpu",
                 publish=store.publish_pass).run(x)
 occ = occ_dp_means(x, 4.0, 64, k_max=64, max_iters=2, device="cpu")
 assert 1 <= int(res.pool.count) < 64 and occ.z.shape == (300,)
+from repro_torch.core import occ_bp_means, occ_ofl
+from repro_torch.data import bp_stick_breaking_data
+ofl = occ_ofl(x, 4.0, 64, key=(0, 1), k_max=128, device="cpu")
+assert 1 <= int(ofl.pool.count) < 128 and ofl.z.shape == (300,)
+xb = bp_stick_breaking_data(128, seed=0)[0]
+bp = occ_bp_means(xb, 4.0, 32, k_max=32, max_iters=2, device="cpu")
+assert 2 <= int(bp.pool.count) < 32 and bp.z.shape == (128, 32)
 top = ClusterService(store, probes=1).topk(x[:5], k=2)
 assert top.labels.shape == (5, 2) and top.version == 1
 import torch
