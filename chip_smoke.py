@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,lm_serve]
+  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve]
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
@@ -12,9 +12,14 @@ width, the paper's Figure 3 counts (held to the JAX package's, run for
 run) and the repository's largest state (a 110k-center retrieval
 index) through the port's public entry points, serves that index (flat
 and multi-probe top-k, score) through the port's serving plane, checks
-the port's bitwise invariants on the card, and serves the language model
-qwen3-4b (prefill and the slot engine's decode) at full width and depth.
-`--phases serve` alone trains the retrieval index first.
+the port's bitwise invariants on the card, runs the paper's multi-process
+OCC cluster (4 propose worker processes, followers, a worker death) and
+its crash-recoverable variant (a master killed and a follower promoted,
+the promoted master's WAL recovered) on the card against the fused
+single-process pass, and serves the language model qwen3-4b (prefill and
+the slot engine's decode) at full width and depth.  `--phases serve` alone
+trains the retrieval index first; `--phases cluster` or `ha` alone builds
+the kernels first.
 
 Every phase prints one JSON line.  The line before the last lists each
 kernel with its launches on the main path, its error against the plain
@@ -32,11 +37,12 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper", "ofl",
               "bp_means", "fig3", "retrieval", "serve", "invariants",
-              "lm_serve")
+              "cluster", "ha", "lm_serve")
 KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream",
            "flash_attention", "rmsnorm", "swiglu")
 SOURCES = ("dpmeans_assign", "topk_stream", "flash_attention", "rmsnorm",
@@ -53,6 +59,17 @@ DP_N = 2**20
 OFL_K_MAX = 131_072
 # The paper's §4 feature data for BP-means.
 BP_N = 2**18
+# The multi-process cluster over the paper's §4 data, cut from 2^20 points
+# for time (64 epochs of Pb = 2048 over 4 worker processes); its chaos run
+# and the HA run take 2^15 points (16 epochs), the telemetry check's six
+# fused passes 2^14 (8 epochs).
+CLUSTER_N = 2**17
+CLUSTER_SMALL_N = 2**15
+TELEMETRY_N = 2**14
+# The reference's limit on telemetry's cost (benchmarks/occ_engine.py,
+# OBS_OVERHEAD_LIMIT_PCT): the post-pass export's host time against the
+# pass's.
+OBS_OVERHEAD_LIMIT_PCT = 2.0
 # Points behind the OFL and BP-means invariants on the card (cut from 8,192
 # and 4,096 to bring the ofl, bp_means and fig3 phases nearer 150 s).
 OFL_INV_N = 4096
@@ -204,6 +221,8 @@ class Smoke:
         self.retrieval_launches: int | None = None
         self.ofl_launches: int | None = None
         self.fig3_launches: int | None = None
+        self.cluster_launches: dict | None = None   # master and workers
+        self.ha_launches: dict | None = None
         self.lm_launches: dict[str, dict] = {}   # prefill / serve counts
         self.dp_x = None
         self.index = None          # (chunks numpy, trained pool)
@@ -384,6 +403,8 @@ class Smoke:
         from repro_torch.kernels.dpmeans_assign import dpmeans_assign
         cases = [
             ("paper", dict(n=2048, k=512, d=16, count=37)),
+            # a cluster worker's propose: its 512-point shard of the epoch
+            ("cluster_shard", dict(n=512, k=512, d=16, count=37)),
             # OFL's propose: an epoch of the paper's data against the
             # 131,072-slot pool, at the count its stream ends with
             ("ofl", dict(n=2048, k=131072, d=16, count=100_790)),
@@ -440,6 +461,14 @@ class Smoke:
                   and torch.equal(torch.flip(ir, [0]), ib),
                   f"{name} row independence: reversed batch == batch, "
                   "bitwise")
+        # A cluster worker's shard propose is the slice of the master-width
+        # propose, bitwise (the multi-process audit rests on it).
+        (x, c, mask, cnt), (d2b, ib) = outs["paper"]
+        for w in range(4):
+            d2s, i_s = dpmeans_assign(x[w * 512:(w + 1) * 512], c, mask, cnt)
+            check(torch.equal(d2s, d2b[w * 512:(w + 1) * 512])
+                  and torch.equal(i_s, ib[w * 512:(w + 1) * 512]),
+                  f"paper: shard {w} of 4 == its slice of the epoch, bitwise")
         # topk_stream at k = 1 is the same kernel: bitwise at the main
         # path's shapes
         from repro_torch.kernels.topk_stream import topk_stream
@@ -468,6 +497,7 @@ class Smoke:
               "max_abs_err": self.max_abs_err["dpmeans_assign"],
               "ptxas": self._ptxas_checked("dpmeans_assign")})
         self._time("paper", *outs["paper"][0])
+        self._time("cluster_shard", *outs["cluster_shard"][0])
         self._time("ofl", *outs["ofl"][0])
         self._time("retrieval", *outs["retrieval"][0], sibling=True)
         self._time("score", *outs["score"][0], sibling=True)
@@ -1757,6 +1787,203 @@ class Smoke:
               "invariants: CUDA-backed pass == plain pass (K and labels, "
               "both passes)")
 
+    # ----------------------------------------------------------- cluster
+    def _ensure_built(self):
+        if "build" not in self.phase_seconds:
+            self.build()
+            self.phase_seconds["build"] = 0.0
+
+    def cluster(self):
+        """The paper's P-machine OCC as real processes on the card
+        (`launch/occ_cluster.run_cluster`): 4 propose workers, each running
+        `dpmeans_assign` on its 512-point shard of every 2048-point epoch,
+        a serializing master, a follower from the start and a late joiner,
+        audited field by field against the fused `OCCEngine.run`; then a
+        worker killed at epoch 4 (audited against the same masking in one
+        process), then the telemetry check."""
+        from repro_torch.kernels import ops
+        from repro_torch.launch.occ_cluster import ClusterConfig, run_cluster
+        self._ensure_built()
+        base = dict(dim=16, lam=4.0, k_max=512, pb=2048, n_workers=4,
+                    n_followers=1, validate_cap=None, seed=self.seed,
+                    quiet=True, device="cuda")
+        # --- the main path: counts from 0 just before, read just after ---
+        ops.reset_launch_counts()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                rec = run_cluster(ClusterConfig(
+                    n=CLUSTER_N, trace_out=os.path.join(tmp, "master.json"),
+                    **base))
+        except AssertionError as e:
+            raise CheckFailed(f"cluster: audit failed: {e}")
+        master = ops.ASSIGN_LAUNCHES
+        # -----------------------------------------------------------------
+        workers = [r["assign_launches"] for r in rec["worker_reports"]]
+        epochs = rec["epochs"]
+        self.cluster_launches = {"master": master, "workers": workers,
+                                 "total": master + sum(workers)}
+        check(rec["device"].startswith("cuda"), "cluster: ran on the card")
+        check(all(rec["bit_identical"].values()),
+              f"cluster: bit-identical audit {rec['bit_identical']}")
+        check(master == epochs and workers == [epochs] * 4,
+              f"cluster: dpmeans_assign launches master {master}, workers "
+              f"{workers} for {epochs} epochs")
+        split = rec["master_span_s"]
+        emit({"phase": "cluster", "n": CLUSTER_N, "pb": 2048, "k_max": 512,
+              "lam": 4.0, "workers": 4, "epochs": epochs,
+              "K": rec["k_final"], "versions": rec["versions_published"],
+              "wall_s": rec["wall_s"], "setup_s": rec["setup_s"],
+              "pass_s": rec["pass_s"], "teardown_s": rec["teardown_s"],
+              "fused_pass_s": rec["ref_pass_s"],
+              "master_wait_proposals_s": split["engine.propose"],
+              "master_validate_s": split["engine.validate"],
+              "master_validate_share": split["engine.validate"]
+              / max(rec["pass_s"], 1e-9),
+              "worker_propose_ms": [r["propose_ms"]
+                                    for r in rec["worker_reports"]],
+              "worker_propose_ms_p50": [r["propose_ms_p50"]
+                                        for r in rec["worker_reports"]],
+              "assign_launches": self.cluster_launches,
+              "delta_bytes_per_publish": rec["delta_bytes_per_publish"],
+              "ack_p50_ms": rec["ack_p50_ms"], "ack_p99_ms": rec["ack_p99_ms"],
+              "n_acks": rec["n_acks"], "bootstraps": rec["n_bootstraps"],
+              "followers": rec["followers"],
+              "follower_digests_match": rec["follower_digests_match"],
+              "late_joiners_bootstrapped": rec["late_joiners_bootstrapped"],
+              "bit_identical": all(rec["bit_identical"].values()),
+              "straggler_events": len(rec["straggler_events"])})
+        try:
+            # no late joiner here: the run above has one, and its start-up
+            # would outlast this 16-epoch pass
+            chaos = run_cluster(ClusterConfig(
+                n=CLUSTER_SMALL_N, die_worker=1, die_epoch=4,
+                late_follower=False, **base))
+        except AssertionError as e:
+            raise CheckFailed(f"cluster chaos: audit failed: {e}")
+        check(chaos["worker_deaths"] == {1: 4},
+              f"cluster chaos: deaths {chaos['worker_deaths']}")
+        emit({"phase": "cluster_chaos", "n": CLUSTER_SMALL_N,
+              "epochs": chaos["epochs"], "K": chaos["k_final"],
+              "worker_deaths": chaos["worker_deaths"],
+              "worker_exitcodes": chaos["worker_exitcodes"],
+              "bit_identical_to_masked_reference":
+                  all(chaos["bit_identical"].values()),
+              "follower_digests_match": chaos["follower_digests_match"],
+              "wall_s": chaos["wall_s"], "setup_s": chaos["setup_s"],
+              "pass_s": chaos["pass_s"], "teardown_s": chaos["teardown_s"]})
+        self._telemetry_check()
+
+    def _telemetry_check(self):
+        """The fused pass with and without `obs` (a registry and a tracer):
+        equal outputs and `dpmeans_assign` launches; `_export_pass`'s host
+        time against the pass's (it is timed after a synchronize, so the
+        wait for the pass's tail is not counted as export); the wall
+        difference over three alternating pairs, printed, not gated."""
+        torch = self.torch
+        from repro_torch.core import DPMeansTransaction, OCCEngine
+        from repro_torch.data import dp_stick_breaking_data
+        from repro_torch.kernels import ops
+        from repro_torch.obs import Obs, Tracer
+        x = torch.as_tensor(dp_stick_breaking_data(
+            TELEMETRY_N, dim=16, seed=self.seed)[0], device=self.dev)
+        txn = DPMeansTransaction(4.0, 512)
+
+        def one(with_obs):
+            obs = Obs(tracer=Tracer("chip_smoke")) if with_obs else None
+            eng = OCCEngine(txn, pb=2048, obs=obs, device="cuda")
+            export = []
+            if with_obs:
+                real = eng._export_pass
+
+                def timed(res, t0):
+                    torch.cuda.synchronize()
+                    a = time.perf_counter()
+                    real(res, t0)
+                    export.append(time.perf_counter() - a)
+                eng._export_pass = timed
+            torch.cuda.synchronize()
+            l0 = ops.ASSIGN_LAUNCHES
+            t0 = time.perf_counter()
+            res = eng.run(x)
+            torch.cuda.synchronize()
+            return (res, time.perf_counter() - t0, ops.ASSIGN_LAUNCHES - l0,
+                    export)
+        runs = [one(w) for _ in range(3) for w in (False, True)]
+        off, on = runs[0::2], runs[1::2]
+        same = all(_same(a[0], b[0]) and torch.equal(a[0].stats.cap,
+                                                     b[0].stats.cap)
+                   for a, b in zip(off, on))
+        launches = [r[2] for r in runs]
+        shares = [100 * r[3][0] / r[1] for r in on]
+        emit({"phase": "telemetry", "n": TELEMETRY_N,
+              "outputs_equal": same, "assign_launches": launches,
+              "pass_s_without_obs": [r[1] for r in off],
+              "pass_s_with_obs": [r[1] for r in on],
+              "export_s": [r[3][0] for r in on],
+              "export_pct_of_pass": shares,
+              "limit_pct": OBS_OVERHEAD_LIMIT_PCT,
+              "with_minus_without_s": [b[1] - a[1] for a, b in zip(off, on)]})
+        check(same, "telemetry: outputs equal with and without obs")
+        check(len(set(launches)) == 1 and launches[0] > 0,
+              f"telemetry: dpmeans_assign launches {launches}")
+        check(max(shares) < OBS_OVERHEAD_LIMIT_PCT,
+              f"telemetry: export takes {max(shares):.3f} % of a pass")
+
+    # ---------------------------------------------------------------- ha
+    def ha(self):
+        """Crash-recoverable OCC on the card (`launch/ha_cluster`): 3 nodes,
+        2 workers, the term-1 master killed right after version 8 is
+        replicated; one promotion, resume at epoch 8, every epoch digest,
+        stats triple, the final store and the follower equal to the
+        uninterrupted single-process pass, and the promoted master's WAL
+        recovered to the final store's digest."""
+        from repro_torch.kernels import ops
+        from repro_torch.launch.ha_cluster import HAConfig, run_ha_cluster
+        self._ensure_built()
+        # --- the main path: counts from 0 just before, read just after ---
+        ops.reset_launch_counts()
+        try:
+            with tempfile.TemporaryDirectory() as wal_dir:
+                rec = run_ha_cluster(HAConfig(
+                    n=CLUSTER_SMALL_N, dim=16, lam=4.0, k_max=512, pb=2048,
+                    n_workers=2, n_nodes=3, kill_master_after_version=8,
+                    wal_dir=wal_dir, seed=self.seed, quiet=True,
+                    device="cuda"))
+        except AssertionError as e:
+            raise CheckFailed(f"ha: audit failed: {e}")
+        driver = ops.ASSIGN_LAUNCHES
+        # -----------------------------------------------------------------
+        workers = [r["assign_launches"]
+                   for r in rec["final_term_worker_reports"]]
+        self.ha_launches = {"driver": driver, "workers": workers,
+                            "total": driver + sum(workers)}
+        emit({"phase": "ha", "n": CLUSTER_SMALL_N, "pb": 2048, "nodes": 3,
+              "workers": 2, "epochs": rec["epochs"], "K": rec["k_final"],
+              "promotions": rec["promotions"], "terms": rec["terms"],
+              "resume_epoch": rec["resume_epoch"],
+              "master_node_final": rec["master_node_final"],
+              "epoch_digests_match": rec["epoch_digests_match"],
+              "epoch_stats_match": rec["epoch_stats_match"],
+              "final_digest_match": rec["final_digest_match"],
+              "follower_digests_match": rec["follower_digests_match"],
+              "wal_recovered_digest_match": rec["wal_digest_match"],
+              "wal_recover_s": rec["wal_recover_s"],
+              "assign_launches": self.ha_launches,
+              "final_term_ack_p50_ms": rec["final_term_metrics"]["ack_p50_ms"],
+              "final_term_ack_p99_ms": rec["final_term_metrics"]["ack_p99_ms"],
+              "wall_s": rec["wall_s"]})
+        check(rec["promotions"] == 1 and rec["terms"] == [1, 2]
+              and rec["resume_epoch"] == 8, "ha: one promotion, resume at 8")
+        check(rec["epoch_digests_match"] and rec["epoch_stats_match"]
+              and rec["final_digest_match"]
+              and all(rec["follower_digests_match"]), "ha: digests match")
+        check(rec["wal_digest_match"] is True,
+              "ha: the WAL recovers the final store")
+        check(driver == rec["epochs"]
+              and workers == [rec["epochs"]] * 2,
+              f"ha: dpmeans_assign launches driver {driver}, workers "
+              f"{workers}")
+
     def _diagnose(self, x, rc, rp, lam):
         """For label mismatches, how close each point's distance came to λ²
         or to its second-nearest center (a near tie)."""
@@ -2441,6 +2668,15 @@ class Smoke:
                    "replaces": replaces, "launches": launches,
                    "max_abs_err": self.max_abs_err[name]}
             if name == "dpmeans_assign":
+                # the cluster phases' launches: their master (or driver)
+                # process and every worker process
+                row["launches_dp_paper"] = launches
+                for extra in (self.cluster_launches, self.ha_launches):
+                    if extra is not None:
+                        row["launches"] = (row["launches"] or 0) \
+                            + extra["total"]
+                row["launches_cluster"] = self.cluster_launches
+                row["launches_ha"] = self.ha_launches
                 row["launches_retrieval"] = self.retrieval_launches
                 row["launches_ofl"] = self.ofl_launches
                 row["launches_fig3"] = self.fig3_launches

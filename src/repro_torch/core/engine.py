@@ -24,11 +24,20 @@ explicit carry so a stream's epoch partition equals the one-shot run's, and
 a row's nearest-center result does not depend on its batch, so streams are
 bit-identical to one-shot runs on the card too.
 
-Not ported yet (see ROADMAP.md): `mesh`, `obs` telemetry (only `obs=None`
-is accepted), `run_from_proposals`.
+Telemetry (`obs=`): after a pass `_export_pass` folds its `OCCStats` into
+the registry and the trace with one host read of the stats, adding no
+launch and no sync inside the epoch loop.
+
+Pluggable proposal source: `run_from_proposals` drives the same epoch loop
+from the host with the propose half supplied by a callable (the in-process
+`local_proposer`, or the worker processes of `launch/occ_cluster.py`),
+bit-identical to `run()` on the same data.
+
+Not ported yet (see ROADMAP.md): `mesh`.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Callable, NamedTuple, Protocol, runtime_checkable
 
 import torch
@@ -38,6 +47,7 @@ from repro_torch.core.occ import (
     CenterPool, OCCStats, ValidatePre, block_epochs, effective_cap,
     next_pow2, precomputed_gather_validate, tree_map,
 )
+from repro_torch.obs.metrics import now as _obs_now
 
 __all__ = ["OCCTransaction", "OCCEngine", "OCCPassResult",
            "resolve_assignments", "accumulate_pass_stats"]
@@ -236,7 +246,8 @@ class OCCEngine:
         parallel fixed point; bit-identical).
       publish: optional hook `publish(result, n_seen=..., epochs=...,
         cap_est=...)` called after every committed pass.
-      obs: telemetry is not ported yet; only None is accepted.
+      obs: optional telemetry (`repro_torch.obs.Obs`).  None costs
+        nothing: no clock reads and no host reads beyond the caller's own.
       device: where the pass runs — "cuda" (default) or "cpu".  Inputs are
         moved there; without a card, "cuda" raises.
     """
@@ -247,19 +258,19 @@ class OCCEngine:
                  publish: Callable[..., Any] | None = None,
                  obs: Any = None,
                  device: str | torch.device = "cuda"):
-        if obs is not None:
-            raise NotImplementedError("telemetry (obs) is not ported yet")
         if isinstance(validate_cap, str) and validate_cap != "adaptive":
             raise ValueError(f"unknown validate_cap {validate_cap!r}")
         if scan_mode not in ("serial", "logdepth"):
             raise ValueError(f"unknown scan_mode {scan_mode!r}")
         self.device = resolve_device(device)
         self.txn = transaction
+        self.obs = obs
         self.pb = int(pb)
         self.adaptive = validate_cap == "adaptive"
         self.validate_cap = None if self.adaptive else validate_cap
         self.scan_mode = scan_mode
         self.publish = publish
+        self.mesh = None            # multi-card meshes are not ported
         self.n_dispatches = 0       # passes run, retries included
         self.n_epochs_dispatched = 0  # epochs run, retries included
         # adaptive-cap observability
@@ -314,11 +325,54 @@ class OCCEngine:
         self.n_epochs_dispatched += epochs
         return res
 
+    def _export_pass(self, res: OCCPassResult, t0: float) -> None:
+        """Post-pass telemetry export (obs is set): fold the pass's
+        `OCCStats` into the registry and the trace.  The three stat vectors
+        come to the host in one read, which waits for the pass; nothing is
+        added inside the epoch loop.  Per-epoch spans are synthesized by
+        even subdivision of the measured pass interval (flagged
+        ``synthetic_timing``)."""
+        m = self.obs.metrics
+        st = res.stats
+        host = torch.stack([st.proposed, st.accepted,
+                            st.cap.to(st.proposed.device)]).cpu().numpy()
+        prop, acc, cap = host
+        t1 = _obs_now()
+        n_epochs = int(prop.shape[0])
+        n_prop, n_acc = int(prop.sum()), int(acc.sum())
+        m.counter("engine_passes").inc()
+        m.counter("engine_epochs").inc(n_epochs)
+        m.counter("engine_proposed").inc(n_prop)
+        m.counter("engine_accepted").inc(n_acc)
+        m.counter("engine_rejected").inc(n_prop - n_acc)
+        if n_prop:
+            # Thm 3.3 conflict rate: the rejected fraction of proposals.
+            m.gauge("engine_conflict_rate").set((n_prop - n_acc) / n_prop)
+        if n_epochs:
+            m.gauge("engine_cap").set(int(cap[-1]))
+        m.histogram("engine_pass_s").observe(t1 - t0)
+        tr = self.obs.tracer
+        if tr is not None:
+            ts0, dur = t0 * 1e6, (t1 - t0) * 1e6
+            tr.complete("engine.pass", ts0, dur, cat="engine",
+                        args=dict(epochs=n_epochs, proposed=n_prop,
+                                  accepted=n_acc,
+                                  dispatches=self.n_dispatches))
+            if n_epochs:
+                step = dur / n_epochs
+                for e in range(n_epochs):
+                    tr.complete(
+                        "engine.epoch", ts0 + e * step, step, cat="engine",
+                        args=dict(epoch=e, proposed=int(prop[e]),
+                                  accepted=int(acc[e]), cap=int(cap[e]),
+                                  synthetic_timing=True))
+
     def _dispatch(self, pool, x, state, *, n_bootstrap: int,
                   cold: bool) -> OCCPassResult:
         """One pass, with the adaptive overflow retry: a pass whose sends
         exceed its window is re-run at full width (same inputs), so
         committed adaptive results equal full-cap results."""
+        t0 = _obs_now() if self.obs is not None else 0.0
         cap_warm, cap_rest, n_warm = self._plan_caps(cold)
         res = self._pass(pool, x, state, n_bootstrap, cap_warm, cap_rest, n_warm)
         self.cap_history.append(cap_rest)
@@ -329,6 +383,8 @@ class OCCEngine:
                 self.cap_history[-1] = None
                 res = self._pass(pool, x, state, n_bootstrap, None, None, 0)
         self._observe_stats(res.stats, cold)
+        if self.obs is not None:
+            self._export_pass(res, t0)
         return res
 
     # ------------------------------------------------------------- batch
@@ -352,6 +408,166 @@ class OCCEngine:
 
     def refine(self, pool: CenterPool, x, assign: Any) -> CenterPool:
         return self.txn.refine(pool, self._x(x), assign)
+
+    # ------------------------------------------- pluggable proposal source
+    def local_proposer(self):
+        """The in-process proposal source: `txn.propose` on the full epoch.
+        `run_from_proposals(x)` with it equals `run(x)` bit for bit, and a
+        worker's shard propose equals the matching slice of it (a row's
+        nearest-center result does not depend on the rows beside it)."""
+        def propose_fn(pool, x_e, state_e, valid_e, *, epoch, offset):
+            send, payload, aux, safe = self.txn.propose(pool, x_e, state_e)
+            return send, payload, aux, safe, valid_e
+        return propose_fn
+
+    def run_from_proposals(self, x, propose_fn=None, *,
+                           pool: CenterPool | None = None, state: Any = None,
+                           n_bootstrap: int = 0, on_commit=None,
+                           on_outputs=None,
+                           epoch_base: int = 0) -> OCCPassResult:
+        """One pass with a pluggable proposal source — the host-driven dual
+        of `run()`, bit-identical to it on the same data.
+
+        The epoch loop asks `propose_fn` for each epoch's proposal block
+        and runs only the serializing finish (`_finish_epoch`: the
+        validator and writeback) itself: the paper's master.  Proposals
+        may come from `local_proposer()` or from P worker processes, each
+        proposing on a disjoint shard, reassembled in global index order
+        (`launch/occ_cluster.py`).
+
+        propose_fn(pool, x_e, state_e, valid_e, *, epoch, offset) returns
+        (send, payload, aux, safe, valid_e) for the epoch's `pb` points
+        (`offset` is the global index of the epoch's first point; the
+        returned valid_e may narrow the input mask, e.g. to mask the shard
+        of a worker that died).
+
+        on_commit(pool, epoch, t_epochs) runs after each main epoch's
+        commit (the per-epoch replication hook).  on_outputs(epoch,
+        assign_e, send_e, (proposed, accepted, cap)) runs after each main
+        epoch, before on_commit, with the epoch's raw (padded) outputs.
+        epoch_base shifts the epoch indices reported to propose_fn /
+        on_commit / on_outputs (a promoted master resumes the global
+        numbering); offsets stay relative to this call's x.
+
+        The adaptive cap needs the whole-pass retry and is refused.  Each
+        epoch counts as one dispatch.
+        """
+        if self.adaptive:
+            raise ValueError("run_from_proposals requires a fixed/None "
+                             "validate_cap (adaptive needs the fused pass)")
+        if self.mesh is not None:
+            raise ValueError("run_from_proposals is host-driven; use run() "
+                             "for mesh-sharded passes")
+        if propose_fn is None:
+            propose_fn = self.local_proposer()
+        cap, sm, pb = self.validate_cap, self.scan_mode, self.pb
+        x = self._x(x)
+        n = x.shape[0]
+        dev = x.device
+        nb = min(int(n_bootstrap), n)
+        if pool is None:
+            pool = self.txn.init_pool(x[:min(pb, n)])
+        else:
+            pool = tree_map(lambda t: t.to(dev), pool)
+        if state is None:
+            state = self.txn.make_state(x, 0)
+
+        obs = self.obs
+        _span = obs.span if obs is not None else (
+            lambda *a, **k: nullcontext())
+
+        # Serial bootstrap prefix: width-1 epochs, stats discarded and send
+        # forced True, as in the fused pass.
+        assign_b = None
+        if nb:
+            ones = torch.ones((1,), dtype=torch.bool, device=dev)
+            parts = []
+            for i in range(nb):
+                s_, p_, a_, sf_, ve = propose_fn(
+                    pool, x[i:i + 1], tree_map(lambda s: s[i:i + 1], state),
+                    ones, epoch=0, offset=i)
+                pool, (ae, *_) = _finish_epoch(self.txn, pool, s_, p_, a_,
+                                               sf_, ve, cap, sm)
+                self.n_dispatches += 1
+                self.n_epochs_dispatched += 1
+                parts.append(ae)
+            assign_b = _cat(parts)
+
+        # Main epochs: the fused pass's padding and valid-masking.
+        n_rest = n - nb
+        t_epochs = block_epochs(n_rest, pb)
+        pad = t_epochs * pb - n_rest
+
+        def flat(a):
+            return torch.cat([a[nb:],
+                              a.new_zeros((pad,) + tuple(a.shape[1:]))], 0)
+        xs = flat(x)
+        valid = flat(torch.ones((n,), dtype=torch.bool, device=dev))
+        ss = tree_map(flat, state)
+
+        am, sm_parts, sent, acc, caps = [], [], [], [], []
+        for e in range(t_epochs):
+            ge = epoch_base + e          # global epoch index (resume)
+            t0e = _obs_now() if obs is not None else 0.0
+            cut = slice(e * pb, (e + 1) * pb)
+            with _span("engine.propose", cat="engine", epoch=ge):
+                s_, p_, a_, sf_, ve = propose_fn(
+                    pool, xs[cut], tree_map(lambda s: s[cut], ss),
+                    valid[cut], epoch=ge, offset=nb + e * pb)
+            with _span("engine.validate", cat="engine", epoch=ge):
+                pool, (ae, sde, ns, na, ce) = _finish_epoch(
+                    self.txn, pool, s_, p_, a_, sf_, ve, cap, sm)
+            self.n_dispatches += 1
+            self.n_epochs_dispatched += 1
+            am.append(ae)
+            sm_parts.append(sde)
+            sent.append(ns)
+            acc.append(na)
+            caps.append(ce)
+            if obs is not None:
+                # Host-driven loop: real per-epoch telemetry (one host read
+                # an epoch), unlike the fused pass's synthesized spans.
+                nsi, nai, cei = int(ns), int(na), int(ce)
+                m = obs.metrics
+                m.counter("engine_epochs").inc()
+                m.counter("engine_proposed").inc(nsi)
+                m.counter("engine_accepted").inc(nai)
+                m.counter("engine_rejected").inc(nsi - nai)
+                if nsi:
+                    m.gauge("engine_conflict_rate").set((nsi - nai) / nsi)
+                m.gauge("engine_cap").set(cei)
+                t1e = _obs_now()
+                m.histogram("engine_epoch_s").observe(t1e - t0e)
+                if obs.tracer is not None:
+                    obs.tracer.complete(
+                        "engine.epoch", t0e * 1e6, (t1e - t0e) * 1e6,
+                        cat="engine",
+                        args=dict(epoch=ge, proposed=nsi, accepted=nai,
+                                  cap=cei))
+            if on_outputs is not None:
+                on_outputs(ge, ae, sde, (ns, na, ce))
+            if on_commit is not None:
+                on_commit(pool, ge, t_epochs)
+
+        assign = tree_map(lambda a: a[:n_rest], _cat(am))
+        send = torch.cat(sm_parts)[:n_rest]
+        if nb:
+            assign = tree_map(lambda b, m: torch.cat([b, m], 0), assign_b,
+                              assign)
+            send = torch.cat([torch.ones((nb,), dtype=torch.bool,
+                                         device=dev), send])
+        epoch_of = torch.cat([
+            torch.zeros((nb,), dtype=torch.int32, device=dev),
+            torch.arange(t_epochs, dtype=torch.int32, device=dev)
+            .repeat_interleave(pb)[:n_rest]])
+        res = OCCPassResult(
+            pool, assign, send, epoch_of,
+            OCCStats(proposed=torch.stack(sent), accepted=torch.stack(acc),
+                     cap=torch.tensor(caps, dtype=torch.int32, device=dev)))
+        if self.publish is not None:
+            self.publish(res, n_seen=n, epochs=t_epochs,
+                         cap_est=self._cap_est)
+        return res
 
     # --------------------------------------------------------- streaming
     @property

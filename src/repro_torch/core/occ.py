@@ -43,6 +43,7 @@ __all__ = [
     "nearest_center_with_new", "OCCStats", "ValidatePre",
     "precomputed_validate", "precomputed_validate_gram", "logdepth_validate",
     "precomputed_gather_validate", "effective_cap", "tree_map",
+    "tree_leaves", "tree_unflatten",
 ]
 
 
@@ -59,6 +60,28 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
                  for i, t in enumerate(tree)]
         return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
     raise TypeError(f"unsupported tree node {type(tree).__name__}")
+
+
+def tree_leaves(tree: Any) -> list[torch.Tensor]:
+    """The tensors of a `tree_map` tree in JAX's tree-flatten order (None
+    and () contribute no leaf) — the leaf order of a PROPOSE frame."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    raise TypeError(f"unsupported tree node {type(tree).__name__}")
+
+
+def tree_unflatten(like: Any, leaves) -> Any:
+    """A tree shaped like `like` whose tensors are `leaves`, taken in
+    `tree_leaves` order (the inverse of `tree_leaves` on that shape)."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has tensors")
+    return out
 
 
 def next_pow2(n: int) -> int:

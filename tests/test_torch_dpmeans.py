@@ -20,6 +20,7 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core._reference import reference_pass  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
+from repro_torch.obs import Obs  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 N, PB, K_MAX, LAM = 1024, 128, 128, 4.0
@@ -249,7 +250,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
                                                  0, False)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    with pytest.raises(NotImplementedError):
-        OCCEngine(txn, PB, obs=object(), device="cpu")
+    eng = OCCEngine(txn, PB, obs=Obs(), device="cpu")   # telemetry is ported
+    eng.run(x[:PB])
+    assert eng.obs.metrics.value("engine_passes") == 1
     with pytest.raises(ValueError):
         OCCEngine(txn, PB, validate_cap="huge", device="cpu")

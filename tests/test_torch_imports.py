@@ -3,7 +3,8 @@
 An AST scan of every module of `src/repro_torch/` and of `chip_smoke.py`,
 and a subprocess in which `jax` and `repro` cannot be imported at all that
 imports the port, runs a tiny pass on the CPU (DP-means, OFL and
-BP-means), publishes it and serves one top-k query from it, then builds
+BP-means), publishes it and serves one top-k query from it, replicates it
+over a loopback `DeltaChannel`, recovers it from a `DeltaWAL`, then builds
 `reduced(qwen3-4b)` on the CPU and serves two requests through the
 language model's `ServeEngine`.
 """
@@ -67,6 +68,22 @@ bp = occ_bp_means(xb, 4.0, 32, k_max=32, max_iters=2, device="cpu")
 assert 2 <= int(bp.pool.count) < 32 and bp.z.shape == (128, 32)
 top = ClusterService(store, probes=1).topk(x[:5], k=2)
 assert top.labels.shape == (5, 2) and top.version == 1
+import tempfile
+from repro_torch.checkpoint import DeltaWAL, WireTee, recover_wal
+from repro_torch.distributed import DeltaChannel, make_follower, store_digest
+chan = DeltaChannel()
+wal_dir = tempfile.mkdtemp()
+wal = DeltaWAL(wal_dir, model="m", fsync=False, device="cpu")
+primary = SnapshotStore(delta=True, model="m", wire=WireTee(chan, wal),
+                        device="cpu")
+follower = make_follower(chan, "m", device="cpu")
+OCCEngine(DPMeansTransaction(4.0, 64), 64, device="cpu").run_from_proposals(
+    x, on_commit=lambda p, e, t: primary.publish_pool(p, epochs=e + 1))
+assert chan.pump() == 5 and follower.versions() == [1, 2, 3, 4, 5]
+wal.close()
+recovered, _ = recover_wal(wal_dir, model="m", device="cpu")
+assert store_digest(follower) == store_digest(recovered) \
+    == store_digest(primary)
 import torch
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models import build_model
