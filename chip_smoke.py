@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve]
+  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,serve_clusters,curation,examples]
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
@@ -17,9 +17,14 @@ OCC cluster (4 propose worker processes, followers, a worker death) and
 its crash-recoverable variant (a master killed and a follower promoted,
 the promoted master's WAL recovered) on the card against the fused
 single-process pass, and serves the language model qwen3-4b (prefill and
-the slot engine's decode) at full width and depth.  `--phases serve` alone
-trains the retrieval index first; `--phases cluster` or `ha` alone builds
-the kernels first.
+the slot engine's decode) at full width and depth.  Then the system's
+remaining entry points: the train-while-serve pipeline (two tenants'
+trainer threads, sixteen client threads behind a coalescing router, a QoS
+A/B of priority lanes against FIFO, every response audited), OCC data
+curation of 2,048 sequences embedded by granite-3-2b at full width and
+depth, and each of the port's examples.  `--phases serve` or `examples`
+alone trains the retrieval index first; `--phases cluster`, `ha`,
+`serve_clusters` or `curation` alone builds the kernels first.
 
 Every phase prints one JSON line.  The line before the last lists each
 kernel with its launches on the main path, its error against the plain
@@ -42,7 +47,8 @@ import time
 
 ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper", "ofl",
               "bp_means", "fig3", "retrieval", "serve", "invariants",
-              "cluster", "ha", "lm_serve")
+              "cluster", "ha", "lm_serve", "serve_clusters", "curation",
+              "examples")
 KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream",
            "flash_attention", "rmsnorm", "swiglu")
 SOURCES = ("dpmeans_assign", "topk_stream", "flash_attention", "rmsnorm",
@@ -101,6 +107,18 @@ BF16_LOGIT_TOL = 0.05
 # this many new tokens, so that the decode-tick percentiles rest on 512
 # ticks.
 SERVE_MAX_NEW = 256
+# The train-while-serve pipeline: points streamed per tenant (the paper's
+# Pb = 2048, 32 epochs each) and the QoS A/B tenant's stream.
+SC_N = 2**16
+SC_QOS_N = 2**14
+# OCC data curation at granite-3-2b: 128 batches of 16 sequences of 256
+# tokens (2,048 sequences, 0.52M tokens), clustered with Pb 256 into a
+# pool of 512.
+CUR_BATCHES = 128
+CUR_BATCH = 16
+CUR_SEQ = 256
+CUR_PB = 256
+CUR_K_MAX = 512
 
 
 def emit(obj) -> None:
@@ -224,6 +242,9 @@ class Smoke:
         self.cluster_launches: dict | None = None   # master and workers
         self.ha_launches: dict | None = None
         self.lm_launches: dict[str, dict] = {}   # prefill / serve counts
+        # launches of the later paths, by path: {kernel: count}
+        self.path_launches: dict[str, dict[str, int]] = {}
+        self.retrieval_built = None   # build_index's (x, store, s, engine)
         self.dp_x = None
         self.index = None          # (chunks numpy, trained pool)
         self.card = ""             # nvidia-smi name and power limit
@@ -1301,37 +1322,38 @@ class Smoke:
 
     # --------------------------------------------------------- retrieval
     def retrieval(self):
+        """The retrieval index of `examples/retrieval_index.py`, trained by
+        the port's copy of it (`repro_torch.examples.retrieval_index.
+        build_index`): 110,000 chunks into a hierarchical store that
+        publishes after the stream and after its flush."""
         torch = self.torch
-        import numpy as np
-        from repro_torch.core import DPMeansTransaction, OCCEngine
+        from repro_torch.examples import retrieval_index
         from repro_torch.kernels import ops
-        rng = np.random.default_rng(self.seed)
-        x = rng.normal(size=(110_000, 16)).astype(np.float32)
-        x /= np.linalg.norm(x, axis=1, keepdims=True)
-        eng = OCCEngine(DPMeansTransaction(0.05, k_max=131_072), pb=256,
-                        validate_cap="adaptive", device="cuda")
-        xt = torch.as_tensor(x, device=self.dev)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        eng.partial_fit(xt)
-        eng.flush()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        built = retrieval_index.build_index(quiet=True, device="cuda")
         launches = ops.ASSIGN_LAUNCHES
+        x, store, seconds, eng = built
         self.retrieval_launches = launches
+        self.retrieval_built = built
         k = int(eng.pool.count)
         self.index = (x, eng.pool)
+        xt = torch.as_tensor(x, device=self.dev)
+        check(x.shape == (110_000, 16), "retrieval: 110,000 chunks of 16")
         check(k >= 100_000, f"retrieval: K={k} >= 100000")
         check(not bool(eng.pool.overflow), "retrieval: no overflow")
-        check(launches == eng.n_epochs_dispatched and launches > 0,
-              "retrieval: one kernel launch per epoch")
+        # one launch an epoch, and one routing launch (build_hier) a
+        # published version
+        check(launches == eng.n_epochs_dispatched + len(store)
+              and launches > len(store) > 0,
+              f"retrieval: {launches} launches for "
+              f"{eng.n_epochs_dispatched} epochs and {len(store)} versions")
         replayed = self._replay_kernel(xt, 256, eng.pool, 0,
                                        eng.stats.accepted, seconds)
         emit({"phase": "retrieval", "n": x.shape[0], "d": 16, "lam": 0.05,
               "k_max": 131_072, "pb": 256, "K": k,
               "epochs": eng.epochs_done, "seconds": seconds,
-              "assign_launches": launches,
+              "versions": len(store), "assign_launches": launches,
               "n_dispatches": eng.n_dispatches,
               "kernel_replayed": replayed})
 
@@ -2633,6 +2655,398 @@ class Smoke:
                     p50 * 1e3,
                 "device_idle_share": max(0.0, 1 - busy / 1e6 / p50)}
 
+    # ---------------------------------------------------- serve_clusters
+    def serve_clusters(self):
+        """The train-while-serve pipeline (`launch/serve_clusters.run_demo`)
+        on the card: 2 tenants, each a trainer thread streaming 65,536
+        points through `partial_fit` (Pb 2048, batches of 5,000, adaptive
+        cap, delta store with an eager shadow), 16 client threads behind a
+        coalescing router, then the QoS A/B (priority lanes against FIFO)
+        with a live trainer.  `run_demo` audits every response itself
+        (zero stale reads by replay, serve == train against the plain
+        version request by request, delta == eager, stream == one-shot,
+        coalesced fill above solo, lanes' interactive p99 below FIFO's,
+        shedding in the priority arm only); an audit that fails fails the
+        phase."""
+        from repro_torch.kernels import ops
+        from repro_torch.launch.serve_clusters import (
+            ServeDemoConfig, run_demo,
+        )
+        self._ensure_built()
+        cfg = ServeDemoConfig(
+            n=SC_N, dim=16, n_models=2, lam=4.0, k_max=512, pb=2048,
+            train_batch=5000, min_queries=10_000, max_request=32,
+            n_clients=16, coalesce_bucket=64, coalesce_delay_ms=10.0,
+            min_versions=3, qos_n=SC_QOS_N, qos_interactive_clients=6,
+            qos_analytics_clients=2, qos_interactive_requests=120,
+            qos_analytics_requests=25, qos_analytics_rows=24,
+            qos_interactive_deadline_ms=10.0,
+            qos_analytics_deadline_ms=250.0, qos_shed_depth=48,
+            seed=self.seed, quiet=True, device="cuda")
+        self.torch.cuda.synchronize()
+        # --- the main path: counts from 0 just before, read just after ---
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rec = run_demo(cfg)
+        except AssertionError as e:
+            raise CheckFailed(f"serve_clusters: audit failed: {e}")
+        seconds = time.perf_counter() - t0
+        launches = {"dpmeans_assign": ops.ASSIGN_LAUNCHES,
+                    "topk_stream": ops.TOPK_LAUNCHES}
+        # -----------------------------------------------------------------
+        self.path_launches["serve_clusters"] = launches
+        q, f = rec["qos_ab"]["qos"], rec["qos_ab"]["fifo"]
+        check(rec["device"].startswith("cuda"), "serve_clusters: on the card")
+        check(launches["dpmeans_assign"] > 0 and launches["topk_stream"] > 0,
+              f"serve_clusters: kernels launched {launches}")
+        check(rec["zero_stale_reads"] and rec["serve_train_parity"]
+              and rec["n_queries"] >= 10_000
+              and min(rec["n_versions_observed"].values()) >= 3
+              and q["n_shed"] > 0 and f["n_shed"] == 0
+              and q["interactive_p99_ms"] < f["interactive_p99_ms"],
+              "serve_clusters: the record agrees with the audits")
+        emit({"phase": "serve_clusters", "card": self.card,
+              "n_per_tenant": SC_N, "tenants": 2, "pb": 2048,
+              "train_batch": 5000, "k_max": 512, "seconds": seconds,
+              "K": rec["k_final"],
+              "versions_published": rec["n_versions_published"],
+              "versions_observed": rec["n_versions_observed"],
+              "trainer_s": rec["trainer_s"],
+              "serve_wall_s": rec["serve_wall_s"], "audit_s": rec["audit_s"],
+              "qos_s": rec["qos_s"], "rows": rec["n_queries"],
+              "requests": rec["n_requests"],
+              "microbatches": rec["n_microbatches"],
+              "dispatches_replayed": rec["n_replayed"],
+              "qps": rec["qps"], "p50_ms": rec["p50_latency_ms"],
+              "p99_ms": rec["p99_latency_ms"],
+              "fill_coalesced": rec["bucket_fill_coalesced"],
+              "fill_solo": rec["bucket_fill_solo"],
+              "requests_per_group": rec["requests_per_group"],
+              "zero_stale_reads": rec["zero_stale_reads"],
+              "serve_train_parity": rec["serve_train_parity"],
+              "delta_eq_eager": rec["delta_eq_eager"],
+              "stream_eq_oneshot": rec["stream_eq_oneshot"],
+              "qos": {arm: {key: rec["qos_ab"][arm][key] for key in (
+                  "interactive_p50_ms", "interactive_p99_ms", "n_shed",
+                  "n_degraded_replayed", "n_replayed", "n_interactive",
+                  "n_analytics", "versions_published", "wall_s")}
+                  for arm in ("qos", "fifo")},
+              "interactive_p99_speedup":
+                  rec["qos_ab"]["interactive_p99_speedup"],
+              "launches": launches})
+
+    # ---------------------------------------------------------- curation
+    def curation(self):
+        """OCC data curation (`examples/data_curation.py`) at granite-3-2b's
+        full width and depth in bf16, random weights: 2,048 sequences of
+        256 tokens from `TokenPipeline` (128 batches of 16; every 16th
+        batch replaced by 16 copies of its first sequence), embedded by
+        `embed_sequences` (flash, rmsnorm, swiglu at (16, 32/8, 256, 64),
+        (4096, 2048), (4096, 8192)) and clustered by `curate` (OCC
+        DP-means, `dpmeans_assign` at D = 2048).  Checked: each batch of
+        copies has equal embeddings and one cluster, duplicates are found
+        and down-weighted, the first batch's embeddings through the plain
+        versions agree (the first two batches), and the labels equal a
+        curate run with propose on the plain version on the same
+        embeddings.  Then the new shapes of
+        the four kernels against their plain versions, and their times."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.configs import get_arch
+        from repro_torch.data.curation import curate, embed_sequences
+        from repro_torch.data.tokens import TokenPipeline
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model
+        self._ensure_built()
+        cfg = get_arch("granite-3-2b").replace(attn_impl="flash")
+        gen = torch.Generator(device=self.dev).manual_seed(self.seed + 19)
+        model = build_model(cfg, device=self.dev).init(gen)
+        pipe = TokenPipeline(cfg.vocab, global_batch=CUR_BATCH,
+                             seq_len=CUR_SEQ, seed=0)
+        batches = [pipe.batch_at(s) for s in range(CUR_BATCHES)]
+        dup_batches = list(range(0, CUR_BATCHES, 16))
+        for s in dup_batches:
+            batches[s] = dict(batches[s])
+            batches[s]["tokens"] = np.tile(batches[s]["tokens"][:1],
+                                           (CUR_BATCH, 1))
+        torch.cuda.synchronize()
+        # --- the main path: counts from 0 just before, read just after ---
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        embeds = embed_sequences(model, batches)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        med = float(torch.median(torch.linalg.vector_norm(
+            embeds - embeds.mean(0), dim=1)))
+        lam = 0.5 * med
+        t0 = time.perf_counter()
+        rep = curate(embeds, lam=lam, pb=CUR_PB, k_max=CUR_K_MAX)
+        curate_s = time.perf_counter() - t0
+        counts = {"dpmeans_assign": ops.ASSIGN_LAUNCHES, **self._lm_counts()}
+        # -----------------------------------------------------------------
+        self.path_launches["curation"] = counts
+        n_seq = CUR_BATCHES * CUR_BATCH
+        layers = cfg.n_layers
+        epochs = int(rep.result.stats.proposed.shape[0])
+        check(counts["flash_attention"] == layers * CUR_BATCHES
+              and counts["swiglu"] == layers * CUR_BATCHES
+              and counts["rmsnorm"] == counts["rmsnorm_one_read"]
+              == 2 * layers * CUR_BATCHES
+              and counts["dpmeans_assign"] == epochs > 0,
+              f"curation: launches {counts} for {CUR_BATCHES} forwards of "
+              f"{layers} layers and {epochs} epochs")
+        check(tuple(embeds.shape) == (n_seq, cfg.d_model)
+              and embeds.dtype == torch.float32
+              and bool(torch.isfinite(embeds).all()),
+              f"curation: embeddings {tuple(embeds.shape)} finite f32")
+        z = rep.result.z.cpu().numpy()
+        for s in dup_batches:
+            rows = slice(s * CUR_BATCH, (s + 1) * CUR_BATCH)
+            e = embeds[rows]
+            check(bool((e == e[:1]).all()) and len(set(z[rows])) == 1,
+                  f"curation: batch {s} of copies: equal embeddings and "
+                  "one cluster")
+        w = rep.keep_weight
+        check(rep.dup_fraction > 0 and bool((w <= 1.0).all())
+              and 1 <= rep.n_clusters <= CUR_K_MAX,
+              f"curation: K={rep.n_clusters}, dup_fraction "
+              f"{rep.dup_fraction}, weights <= 1")
+        # the first two batches (the first is one sequence's copies)
+        # through the plain versions, the same weights
+        pm = build_model(cfg.replace(attn_impl="chunked"), device=self.dev,
+                         backend="plain")
+        pm.load_state_dict(model.state_dict())
+        plain_first = embed_sequences(pm, batches[:2])
+        del pm
+        torch.cuda.empty_cache()
+        first = embeds[:2 * CUR_BATCH]
+        err = float((first - plain_first).abs().max())
+        scale = float(plain_first.abs().max())
+        check(err <= BF16_LOGIT_TOL * scale,
+              f"curation: embeddings kernels vs plain {err} > "
+              f"{BF16_LOGIT_TOL} x {scale}")
+        # the same clustering with propose on the plain version
+        plain_rep, t_plain = self._curate_plain(embeds, lam)
+        zp = plain_rep.result.z.cpu().numpy()
+        ties = self._curation_ties(embeds, rep, plain_rep)
+        check(plain_rep.n_clusters == rep.n_clusters
+              and all(t["tie"] for t in ties),
+              f"curation: K {rep.n_clusters} vs plain propose "
+              f"{plain_rep.n_clusters}; rows that differ {ties[:8]}")
+        emit({"phase": "curation", "card": self.card, "arch": "granite-3-2b",
+              "dtype": "bfloat16", "layers": layers, "sequences": n_seq,
+              "seq_len": CUR_SEQ, "tokens": n_seq * CUR_SEQ,
+              "forward_s": forward_s,
+              "tokens_per_s": n_seq * CUR_SEQ / forward_s,
+              "lam": lam, "pb": CUR_PB, "k_max": CUR_K_MAX,
+              "K": rep.n_clusters, "overflow": bool(rep.result.pool.overflow),
+              "epochs": epochs, "curate_s": curate_s,
+              "curate_plain_propose_s": t_plain,
+              "dup_fraction": rep.dup_fraction,
+              "downweighted": int((w < 1).sum()),
+              "dup_batches": dup_batches,
+              "embed_plain_max_abs_err": err, "embed_scale": scale,
+              "labels_differ": int((z != zp).sum()), "tie_rows": ties,
+              "launches": counts})
+        self._curation_kernels(embeds, rep)
+
+    def _curate_plain(self, embeds, lam):
+        """`curate` on the same embeddings with propose on the plain
+        version (the kernel's comparison run; it launches nothing)."""
+        from repro_torch.core import dp_means
+        from repro_torch.core.occ import nearest_center
+        from repro_torch.data.curation import curate
+
+        class PlainDP(dp_means.DPMeansTransaction):
+            def propose(self, pool, x_e, state_e):
+                d2, idx = nearest_center(pool, x_e, backend="plain")
+                return (d2 > dp_means._lam2(self.lam, d2.dtype), x_e,
+                        (d2, idx), idx)
+        real = dp_means.DPMeansTransaction
+        dp_means.DPMeansTransaction = PlainDP
+        try:
+            t0 = time.perf_counter()
+            rep = curate(embeds, lam=lam, pb=CUR_PB, k_max=CUR_K_MAX)
+            return rep, time.perf_counter() - t0
+        finally:
+            dp_means.DPMeansTransaction = real
+
+    def _curation_ties(self, embeds, rep, plain_rep) -> list[dict]:
+        """Each row whose label differs between the kernel's run and the
+        plain run: its squared distances (f64) to its center in each run,
+        and whether they agree within REL_TOL of ||x||^2 + ||c||^2 (a tie
+        the two summation orders break differently)."""
+        torch = self.torch
+        zk, zp = rep.result.z, plain_rep.result.z
+        rows = torch.nonzero(zk != zp).flatten().tolist()
+        out = []
+        for r in rows:
+            x = embeds[r].double()
+            ck = rep.result.pool.centers[int(zk[r])].double()
+            cp = plain_rep.result.pool.centers[int(zp[r])].double()
+            dk, dp = float(((x - ck) ** 2).sum()), float(((x - cp) ** 2).sum())
+            scale = float((x * x).sum()) + max(float((ck * ck).sum()),
+                                               float((cp * cp).sum()))
+            out.append({"row": r, "z": int(zk[r]), "z_plain": int(zp[r]),
+                        "d2": dk, "d2_plain": dp,
+                        "tie": abs(dk - dp) <= REL_TOL * scale})
+        return out
+
+    def _curation_kernels(self, embeds, rep):
+        """The four kernels at curation's shapes against their plain
+        versions (dpmeans_assign on the real embeddings and pool at
+        D = 2048, the general tile path, and on random inputs there), and
+        their times: dpmeans_assign (256, 512, 2048) f32, flash (16, 32/8,
+        256, 64) bf16 causal against SDPA, rmsnorm (4096, 2048) bf16
+        against `F.rms_norm`, swiglu (4096, 8192) bf16."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.rmsnorm import rmsnorm
+        from repro_torch.kernels.swiglu import swiglu
+        pool = rep.result.pool
+        cnt = pool.count.reshape(1).to(torch.int32)
+        xe = embeds[:CUR_PB].contiguous()
+        self._compare("curation_propose", xe, pool.centers, pool.mask, cnt)
+        self._compare("curation_propose_last_epoch",
+                      embeds[-CUR_PB:].contiguous(), pool.centers,
+                      pool.mask, cnt)
+        x, c, mask, rcnt = self._inputs(CUR_PB, CUR_K_MAX, 2048,
+                                        count=int(pool.count), seed=19)
+        self._compare("d2048_random", x, c, mask, rcnt)
+        self._time("curation", xe, pool.centers, pool.mask, cnt)
+        g = torch.Generator(device=self.dev).manual_seed(self.seed + 1900)
+        bf16 = torch.bfloat16
+
+        def randn(shape, mul=1.0):
+            return (torch.randn(shape, generator=g, device=self.dev)
+                    * mul).to(bf16)
+        b, s, h, hkv, dh, d, dff = (CUR_BATCH, CUR_SEQ, 32, 8, 64, 2048,
+                                    8192)
+        with torch.inference_mode():
+            q = randn((b, s, h, dh)).transpose(1, 2)
+            k = randn((b, s, hkv, dh)).transpose(1, 2)
+            v = randn((b, s, hkv, dh)).transpose(1, 2)
+            case = f"bf16 curation {list(q.shape)} / {list(k.shape)}"
+            got, want = flash_attention(q, k, v), ref.flash_attention_ref(
+                q, k, v)
+            self._lm_agree("flash_attention", case, got, want)
+            del got, want
+            flops = 2.0 * s * s * dh * b * h
+            self._time_kernel(
+                "flash_attention", "curation",
+                lambda: flash_attention(q, k, v),
+                lambda: ref.flash_attention_ref(q, k, v),
+                flops=flops, nbytes=2.0 * (2 * q.numel() + 2 * k.numel()),
+                peak_flops=PEAK_BF16_FLOPS,
+                library=lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                q=list(q.shape), kv=list(k.shape), dtype="bfloat16",
+                causal=True, sdpa=self._sdpa_backends(q, k, v))
+            x, w = randn((b * s, d)), randn((d,))
+            self._lm_agree("rmsnorm", f"bf16 curation {(b * s, d)}",
+                           rmsnorm(x, w, 1e-6), ref.rmsnorm_ref(x, w, 1e-6))
+            self._time_kernel(
+                "rmsnorm", "curation", lambda: rmsnorm(x, w, 1e-6),
+                lambda: ref.rmsnorm_ref(x, w, 1e-6),
+                flops=4.0 * x.numel(),
+                nbytes=2.0 * (2 * x.numel() + w.numel()),
+                library=lambda: F.rms_norm(x, (d,), w, 1e-6),
+                x=list(x.shape), dtype="bfloat16")
+            a, u = randn((b * s, dff), 3.0), randn((b * s, dff))
+            self._lm_agree("swiglu", f"bf16 curation {(b * s, dff)}",
+                           swiglu(a, u), ref.swiglu_ref(a, u))
+            self._time_kernel(
+                "swiglu", "curation", lambda: swiglu(a, u),
+                lambda: ref.swiglu_ref(a, u), flops=5.0 * a.numel(),
+                nbytes=2.0 * 3 * a.numel(), gate=list(a.shape),
+                dtype="bfloat16")
+
+    # ---------------------------------------------------------- examples
+    def examples(self):
+        """Each ported example (`repro_torch.examples.*`) at its own sizes on
+        the card: quickstart, streaming_clusters and crash_recovery (their
+        integers equal to the same example's run on the CPU),
+        observability with its multi-process act (`--ha`), retrieval_index
+        over the index the retrieval phase trained, serve_lm and
+        data_curation."""
+        from repro_torch.examples import (
+            crash_recovery, data_curation, observability, quickstart,
+            retrieval_index, serve_lm, streaming_clusters,
+        )
+        from repro_torch.kernels import ops
+        self._ensure_built()
+        if getattr(self, "retrieval_built", None) is None:
+            self.retrieval()
+        res, secs = {}, {}
+        self.torch.cuda.synchronize()
+        # --- the main path: counts from 0 just before, read just after ---
+        ops.reset_launch_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, call in (
+                    ("quickstart", lambda: quickstart.main([])),
+                    ("streaming_clusters",
+                     lambda: streaming_clusters.main([])),
+                    ("crash_recovery", lambda: crash_recovery.main([])),
+                    ("observability", lambda: observability.main(
+                        ["--ha", "--out-dir", tmp])),
+                    ("retrieval_index", lambda: retrieval_index.main(
+                        ["--quiet"], index=self.retrieval_built)),
+                    ("serve_lm", lambda: serve_lm.main([])),
+                    ("data_curation", lambda: data_curation.main([]))):
+                t0 = time.perf_counter()
+                try:
+                    res[name] = call()
+                except AssertionError as e:
+                    raise CheckFailed(f"examples {name}: {e}")
+                self.torch.cuda.synchronize()
+                secs[name] = time.perf_counter() - t0
+        counts = {"dpmeans_assign": ops.ASSIGN_LAUNCHES,
+                  "topk_stream": ops.TOPK_LAUNCHES,
+                  "topk_multiprobe_stream": ops.TOPK_MP_LAUNCHES,
+                  **self._lm_counts()}
+        # -----------------------------------------------------------------
+        self.path_launches["examples"] = counts
+        # (the examples' language models take chunked attention, as the
+        # JAX package's do: no flash launch here)
+        check(all(counts[k] > 0 for k in KERNELS if k != "flash_attention"),
+              f"examples: kernels launched {counts}")
+        cpu = {"quickstart": quickstart.main(["--device", "cpu"]),
+               "streaming_clusters": streaming_clusters.main(
+                   ["--device", "cpu"]),
+               "crash_recovery": crash_recovery.main(["--device", "cpu"])}
+        for name, want in cpu.items():
+            got = {k: v for k, v in res[name].items() if k != "J"}
+            want = {k: v for k, v in want.items() if k != "J"}
+            check(got == want, f"examples {name}: the card {got} != the "
+                  f"CPU {want}")
+        q, st, cr = (res["quickstart"], res["streaming_clusters"],
+                     res["crash_recovery"])
+        obs, ret = res["observability"], res["retrieval_index"]
+        lm, dc = res["serve_lm"], res["data_curation"]
+        check(q["K"] == q["K_serial"] and st["ofl_stream_eq_oneshot"]
+              and cr["identical"] and obs["ha"]["promotions"] == 1
+              and ret["sweep"]["p_all"]["exact_vs_flat"]
+              and ret["k_centers"] >= 100_000
+              and lm["requests"] == 6 and lm["new_tokens"] == 48
+              and dc["dup_fraction"] > 0,
+              "examples: outputs")
+        emit({"phase": "examples", "card": self.card, "seconds": secs,
+              "launches": counts,
+              "quickstart": q, "streaming_clusters": {
+                  "K_dp": st["K_dp"], "K_ofl": st["K_ofl"],
+                  "ofl_stream_eq_oneshot": st["ofl_stream_eq_oneshot"]},
+              "crash_recovery": cr, "observability": obs,
+              "retrieval_index": {k: ret[k] for k in (
+                  "k_centers", "n_cells", "shard_cap", "n_queries",
+                  "sweep")},
+              "serve_lm": {"requests": lm["requests"],
+                           "new_tokens": lm["new_tokens"]},
+              "data_curation": {k: v for k, v in dc.items() if k != "z"},
+              "card_eq_cpu": sorted(cpu)})
+
     def kernel_rows(self) -> list[dict]:
         """One row per kernel: launches on its main path, largest error
         against its plain version, and its times at the shape its main
@@ -2686,6 +3100,11 @@ class Smoke:
             if name == "rmsnorm" and self.lm_launches:
                 row["launches_one_read"] = sum(
                     c["rmsnorm_one_read"] for c in self.lm_launches.values())
+            # the train-while-serve, curation and examples paths
+            for path, counts in self.path_launches.items():
+                row[f"launches_{path}"] = counts.get(name, 0)
+                row["launches"] = (row["launches"] or 0) \
+                    + counts.get(name, 0)
             shapes = [t for t in self.timings if t["kernel"] == name]
             main = next((t for t in shapes
                          if t["shape"] == main_shape[name]), None)

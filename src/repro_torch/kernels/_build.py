@@ -7,6 +7,11 @@ shared headers (`csrc/*.cuh`), so an edited source is rebuilt and an
 unchanged one is loaded as it is.  No PyTorch
 headers are compiled: a build takes seconds, not minutes.
 
+Building, loading and binding hold one process-wide lock, so threads that
+reach a library's first use together (a trainer, a client and an admission
+queue of one service) build it once and bind each entry point once; a
+build's temporary file is named by process and thread.
+
 Nothing here runs at import time, so the CPU tests import every module of
 the port without nvcc or a card.
 """
@@ -17,11 +22,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "build",
-           "build_all", "load"]
+           "build_all", "load", "function"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -29,6 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[tuple[str, str], object] = {}
+_LOCK = threading.RLock()   # guards builds, _LIBS and _FUNCS
 BUILD_LOG: dict[str, dict] = {}   # per source: seconds, ptxas output, path
 
 
@@ -57,6 +65,11 @@ def build_all(names) -> dict[str, Path]:
     """Compile every `csrc/<name>.cu` of `names` that has no library for
     its exact source yet, one nvcc process per source, all started
     together; returns the library paths.  Raises if any build fails."""
+    with _LOCK:
+        return _build_all_locked(names)
+
+
+def _build_all_locked(names) -> dict[str, Path]:
     paths, running = {}, []
     for name in names:
         src, out = _library(name)
@@ -66,7 +79,8 @@ def build_all(names) -> dict[str, Path]:
                                         "path": str(out)})
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
@@ -95,8 +109,23 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built on first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _LIBS[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
+        return lib
+
+
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """The C entry point `symbol` of `csrc/<name>.cu`, typed with
+    `argtypes` and `restype` once, on first use, under the lock."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        with _LOCK:
+            fn = _FUNCS.get((name, symbol))
+            if fn is None:
+                fn = getattr(load(name), symbol)
+                fn.argtypes = argtypes
+                fn.restype = restype
+                _FUNCS[(name, symbol)] = fn
+    return fn

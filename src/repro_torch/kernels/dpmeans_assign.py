@@ -12,13 +12,22 @@ on S.  The wrapper checks every input, allocates the outputs with
 synchronising.  A split launch merges the splits through one 64-bit key a
 row and one ticket counter a row block: those live in buffers kept per
 (device, stream), all ones and zero, which every launch leaves so again,
-so launches on one stream never share them while they run.  It takes CUDA
+so launches on one stream never share them while they run.  A launch
+takes its buffers and enqueues its kernel under one process-wide lock
+(`_LAUNCH_LOCK`, shared with the top-k wrappers): a thread that grows the
+buffers frees the old ones, and the caching allocator may hand that
+memory to the next allocation on the stream, so no other thread may hold
+a pointer into them that it has not enqueued yet.  Threads that launch
+on one stream (the default stream, unless a thread sets another) run in
+the stream's order, so no launch sees another's keys or tickets half
+reset.  It takes CUDA
 tensors only: the plain version for CPU tensors is `ref.assign_ref`, and
 the choice between them is made by `ops.assign` from the tensor's device.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -32,9 +41,9 @@ FAST_D = 16           # the width of the fast kernel (tiles of 256 centers)
 _BLOCKS_PER_SM = 2
 _MIN_TILES_PER_SPLIT = 2
 
-_FN = None
 _SMS: dict[int, int] = {}
 _SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+_LAUNCH_LOCK = threading.Lock()   # scratch lookup through kernel enqueue
 
 
 def block_k(d: int) -> int:
@@ -78,16 +87,11 @@ def _scratch(dev: torch.device, stream: int, n: int):
     return got
 
 
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
 def _fn():
-    global _FN
-    if _FN is None:
-        lib = _build.load("dpmeans_assign")
-        fn = lib.dpmeans_assign_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+    return _build.function("dpmeans_assign", "dpmeans_assign_fwd", _ARGTYPES)
 
 
 def _check(name: str, t: torch.Tensor, dtypes, ndim: int, device) -> None:
@@ -128,12 +132,14 @@ def dpmeans_assign(x: torch.Tensor, centers: torch.Tensor, mask: torch.Tensor,
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     s = n_split(n, k, d, _sm_count(dev))
-    keys = tickets = 0
-    if s > 1 and n > 0:
-        keys, tickets = (t.data_ptr() for t in _scratch(dev, stream, n))
-    err = _fn()(x.data_ptr(), centers.data_ptr(), mask.data_ptr(),
-                count.data_ptr(), d2.data_ptr(), idx.data_ptr(), keys, tickets,
-                DTYPE_CODES[x.dtype], n, k, d, s, stream)
+    fn = _fn()
+    with _LAUNCH_LOCK:
+        keys = tickets = 0
+        if s > 1 and n > 0:
+            keys, tickets = (t.data_ptr() for t in _scratch(dev, stream, n))
+        err = fn(x.data_ptr(), centers.data_ptr(), mask.data_ptr(),
+                 count.data_ptr(), d2.data_ptr(), idx.data_ptr(), keys,
+                 tickets, DTYPE_CODES[x.dtype], n, k, d, s, stream)
     if err != 0:
         raise RuntimeError(f"dpmeans_assign launch failed: CUDA error {err}")
     return d2, idx

@@ -43,8 +43,6 @@ HEAD_DIMS = (16, 32, 64, 128, 256)   # Dh the kernels are compiled for
 # The driver's codes for a failed cuTensorMapEncodeTiled start here.
 _ENCODE_ERROR = 100000
 
-_FNS: dict = {}   # C entry points by name, typed on first use
-
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
     es = t.element_size()
@@ -67,22 +65,18 @@ def tma_geometry(name: str, t: torch.Tensor) -> tuple[int, ...]:
     return (dh, s, h, b, t.stride(2) * es, t.stride(1) * es, t.stride(0) * es)
 
 
+# The C entry points' argument types, by name.
+_ARGTYPES = {
+    "flash_attention_f32_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p],
+    "flash_attention_bf16_fwd": [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p]}
+
+
 def _fn(name: str):
-    fn = _FNS.get(name)
-    if fn is None:
-        fn = getattr(_build.load("flash_attention"), name)
-        if name == "flash_attention_f32_fwd":
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                           + [ctypes.c_longlong] * 9
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        else:
-            fn.argtypes = ([ctypes.c_void_p] * 4
-                           + [ctypes.c_int,
-                              ctypes.POINTER(ctypes.c_longlong),
-                              ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return fn
+    return _build.function("flash_attention", name, _ARGTYPES[name])
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -12,10 +12,13 @@ There is no fallback: a CUDA tensor reaches the plain version only when
 `serve_topk`, `serve_topk_multiprobe`) add the query-prefix mask of a
 padded bucket.  The language model's primitives (`flash_attention`,
 `rmsnorm`, `swiglu`) follow the same rule.  Each kernel has a plain-int launch count,
-raised by one where the kernel is launched and nowhere else, so a run can
+raised by one where the kernel is launched and nowhere else (under a lock:
+trainer, client and admission-queue threads launch at once), so a run can
 show that its main path went through the kernel.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -49,16 +52,18 @@ RMSNORM_LAUNCHES = 0           # both rmsnorm kernels; by kernel below
 RMSNORM_ONE_READ_LAUNCHES = 0
 RMSNORM_TWO_PASS_LAUNCHES = 0
 SWIGLU_LAUNCHES = 0
+_COUNTS_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
     global ASSIGN_LAUNCHES, PAIRWISE_ARGMIN_LAUNCHES, TOPK_LAUNCHES, \
         TOPK_MP_LAUNCHES, FLASH_LAUNCHES, RMSNORM_LAUNCHES, SWIGLU_LAUNCHES, \
         RMSNORM_ONE_READ_LAUNCHES, RMSNORM_TWO_PASS_LAUNCHES
-    ASSIGN_LAUNCHES = PAIRWISE_ARGMIN_LAUNCHES = 0
-    TOPK_LAUNCHES = TOPK_MP_LAUNCHES = 0
-    FLASH_LAUNCHES = RMSNORM_LAUNCHES = SWIGLU_LAUNCHES = 0
-    RMSNORM_ONE_READ_LAUNCHES = RMSNORM_TWO_PASS_LAUNCHES = 0
+    with _COUNTS_LOCK:
+        ASSIGN_LAUNCHES = PAIRWISE_ARGMIN_LAUNCHES = 0
+        TOPK_LAUNCHES = TOPK_MP_LAUNCHES = 0
+        FLASH_LAUNCHES = RMSNORM_LAUNCHES = SWIGLU_LAUNCHES = 0
+        RMSNORM_ONE_READ_LAUNCHES = RMSNORM_TWO_PASS_LAUNCHES = 0
 
 
 def _use_kernel(x: torch.Tensor, backend: str) -> bool:
@@ -97,7 +102,8 @@ def assign(x, centers, mask=None, count=None, backend: str = "auto"):
         if mask is None:
             mask = torch.ones((k,), dtype=torch.bool, device=x.device)
         out = _dpmeans_assign(x, centers, mask, _count_tensor(count, k, x.device))
-        ASSIGN_LAUNCHES += 1
+        with _COUNTS_LOCK:
+            ASSIGN_LAUNCHES += 1
         return out
     if mask is None:
         mask = torch.ones((k,), dtype=torch.bool, device=x.device)
@@ -117,7 +123,8 @@ def pairwise_argmin(x, centers, mask=None, backend: str = "auto"):
         if mask is None:
             mask = torch.ones((k,), dtype=torch.bool, device=x.device)
         out = _dpmeans_assign(x, centers, mask, _count_tensor(None, k, x.device))
-        PAIRWISE_ARGMIN_LAUNCHES += 1
+        with _COUNTS_LOCK:
+            PAIRWISE_ARGMIN_LAUNCHES += 1
         return out
     return _ref.pairwise_argmin_ref(x, centers, mask)
 
@@ -181,7 +188,8 @@ def serve_topk(x, centers, k: int, mask=None, count=None, n_valid=None,
         kk = min(k, kc)
         d2, idx = _topk_stream(x, centers, mask,
                                _count_tensor(count, kc, x.device), kk)
-        TOPK_LAUNCHES += 1
+        with _COUNTS_LOCK:
+            TOPK_LAUNCHES += 1
     else:
         if count is not None:
             mask = mask & (torch.arange(kc, device=centers.device) < count)
@@ -213,7 +221,8 @@ def serve_topk_multiprobe(x, fine, fine_ids, fine_mask, cells, member,
         d2, idx = _topk_mp_stream(
             x, fine, fine_ids, fine_mask, cells, member,
             _count_tensor(u_count, cells.shape[0], x.device), k)
-        TOPK_MP_LAUNCHES += 1
+        with _COUNTS_LOCK:
+            TOPK_MP_LAUNCHES += 1
     else:
         d2, idx = _ref.topk_multiprobe_ref(x, fine, fine_ids, fine_mask,
                                            cells, member, k)
@@ -229,7 +238,8 @@ def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
     global FLASH_LAUNCHES
     if _use_kernel(q, backend):
         out = _flash_attention(q, k, v, causal=causal, scale=scale)
-        FLASH_LAUNCHES += 1
+        with _COUNTS_LOCK:
+            FLASH_LAUNCHES += 1
         return out
     _flash_check_shapes(q, k, v)
     return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
@@ -243,11 +253,12 @@ def rmsnorm(x, weight, eps: float = 1e-6, backend: str = "auto"):
         RMSNORM_TWO_PASS_LAUNCHES
     if _use_kernel(x, backend):
         out, packs = _rmsnorm_launch(x, weight, eps=eps)
-        RMSNORM_LAUNCHES += 1
-        if packs:
-            RMSNORM_ONE_READ_LAUNCHES += 1
-        else:
-            RMSNORM_TWO_PASS_LAUNCHES += 1
+        with _COUNTS_LOCK:
+            RMSNORM_LAUNCHES += 1
+            if packs:
+                RMSNORM_ONE_READ_LAUNCHES += 1
+            else:
+                RMSNORM_TWO_PASS_LAUNCHES += 1
         return out
     return _ref.rmsnorm_ref(x, weight, eps=eps)
 
@@ -257,6 +268,7 @@ def swiglu(gate, up, backend: str = "auto"):
     global SWIGLU_LAUNCHES
     if _use_kernel(gate, backend):
         out = _swiglu(gate, up)
-        SWIGLU_LAUNCHES += 1
+        with _COUNTS_LOCK:
+            SWIGLU_LAUNCHES += 1
         return out
     return _ref.swiglu_ref(gate, up)

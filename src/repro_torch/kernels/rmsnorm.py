@@ -38,19 +38,13 @@ ONE_READ_WIDTHS = (2048, 2560, 3072, 4096)
 # The element types the kernels are compiled for.
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
-_FN = None
+_ARGTYPES = [ctypes.c_void_p] * 3 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("rmsnorm").rmsnorm_fwd
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+    return _build.function("rmsnorm", "rmsnorm_fwd", _ARGTYPES)
 
 
 def one_read_packs(d: int, element_size: int, aligned: bool) -> int:

@@ -24,18 +24,12 @@ from repro_torch.kernels._checks import (
 
 __all__ = ["swiglu"]
 
-_FN = None
+_ARGTYPES = [ctypes.c_void_p] * 3 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
 def _fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("swiglu").swiglu_fwd
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+    return _build.function("swiglu", "swiglu_fwd", _ARGTYPES)
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor):

@@ -13,7 +13,9 @@ shapes and the SM count); the result does not depend on S.  A split flat
 launch merges in the same launch through per-split lists and tickets, a
 multi-probe launch through per-pair lists, a count a row and tickets;
 these live per (device, stream), and every launch leaves counts and
-tickets reset, so nothing is allocated a call but the outputs.  The
+tickets reset, so nothing is allocated a call but the outputs.  A launch
+takes its scratch and enqueues its kernel under `dpmeans_assign`'s
+launch lock (the reason is given there).  The
 wrappers check every input and launch on PyTorch's current stream of the
 input's device without synchronising.  They take float32 CUDA tensors
 only: the plain versions for CPU tensors are `ref.topk_ref` and
@@ -28,7 +30,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dpmeans_assign import _check, _sm_count
+from repro_torch.kernels.dpmeans_assign import _LAUNCH_LOCK, _check, _sm_count
 from repro_torch.kernels.dpmeans_assign import n_split as _assign_n_split
 
 __all__ = ["topk_stream", "topk_multiprobe_stream", "topk_tile_loads",
@@ -44,19 +46,18 @@ _BLOCK_N = 64     # query rows per block
 _TICKETS = 32     # tickets a row block (the kernels' TICKETS_PER_BLOCK)
 _BLOCKS_PER_SM = 2
 
-_FNS: dict[str, object] = {}
 _SCRATCH: dict[tuple[int, int], dict[str, torch.Tensor]] = {}
 
 
-def _fn(name: str, n_ptr: int, n_int: int):
-    fn = _FNS.get(name)
-    if fn is None:
-        fn = getattr(_build.load("topk_stream"), name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
-    return fn
+# The C entry points' argument types: pointers, ints, the stream.
+_ARGTYPES = {name: [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
+             + [ctypes.c_void_p]
+             for name, n_ptr in (("topk_stream_f32", 10),
+                                 ("topk_multiprobe_f32", 14))}
+
+
+def _fn(name: str):
+    return _build.function("topk_stream", name, _ARGTYPES[name])
 
 
 def block_k(rows: int, k: int, d: int, sms: int) -> int:
@@ -174,15 +175,16 @@ def topk_stream(x: torch.Tensor, centers: torch.Tensor, mask: torch.Tensor,
     d2 = torch.empty((n, int(k)), dtype=torch.float32, device=dev)
     idx = torch.empty((n, int(k)), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [0] * 4
-    if s > 1 and n > 0:
-        g = _scratch(dev, stream, n, n * (s + _groups(s)) * kk)
-        ptrs = [g[name].data_ptr() for name in
-                ("keys", "part_d", "part_i", "tickets")]
-    err = _fn("topk_stream_f32", 10, 7)(
-        x.data_ptr(), centers.data_ptr(), mask.data_ptr(), count.data_ptr(),
-        d2.data_ptr(), idx.data_ptr(), *ptrs, n, kc, d, kk, int(k), bk, s,
-        stream)
+    fn = _fn("topk_stream_f32")
+    with _LAUNCH_LOCK:
+        ptrs = [0] * 4
+        if s > 1 and n > 0:
+            g = _scratch(dev, stream, n, n * (s + _groups(s)) * kk)
+            ptrs = [g[name].data_ptr() for name in
+                    ("keys", "part_d", "part_i", "tickets")]
+        err = fn(x.data_ptr(), centers.data_ptr(), mask.data_ptr(),
+                 count.data_ptr(), d2.data_ptr(), idx.data_ptr(), *ptrs, n,
+                 kc, d, kk, int(k), bk, s, stream)
     if err != 0:
         raise RuntimeError(f"topk_stream launch failed: CUDA error {err}")
     return d2, idx
@@ -233,16 +235,17 @@ def topk_multiprobe_stream(x: torch.Tensor, fine: torch.Tensor,
         if _stats.numel() < 2:
             raise ValueError("_stats needs two counters")
         stats = _stats.data_ptr()
-    ptrs = [0] * 4
-    if b > 0:
-        g = _scratch(dev, stream, b, b * u * kk)
-        ptrs = [g[name].data_ptr() for name in
-                ("part_d", "part_i", "counts", "tickets")]
-    err = _fn("topk_multiprobe_f32", 14, 7)(
-        x.data_ptr(), fine.data_ptr(), fine_ids.data_ptr(),
-        fine_mask.data_ptr(), cells.data_ptr(), member.data_ptr(),
-        u_count.data_ptr(), d2.data_ptr(), idx.data_ptr(), *ptrs, stats, b,
-        u, s_cap, d, kk, int(k), s, stream)
+    fn = _fn("topk_multiprobe_f32")
+    with _LAUNCH_LOCK:
+        ptrs = [0] * 4
+        if b > 0:
+            g = _scratch(dev, stream, b, b * u * kk)
+            ptrs = [g[name].data_ptr() for name in
+                    ("part_d", "part_i", "counts", "tickets")]
+        err = fn(x.data_ptr(), fine.data_ptr(), fine_ids.data_ptr(),
+                 fine_mask.data_ptr(), cells.data_ptr(), member.data_ptr(),
+                 u_count.data_ptr(), d2.data_ptr(), idx.data_ptr(), *ptrs,
+                 stats, b, u, s_cap, d, kk, int(k), s, stream)
     if err != 0:
         raise RuntimeError(
             f"topk_multiprobe_stream launch failed: CUDA error {err}")

@@ -121,21 +121,41 @@ class Model(nn.Module):
                     self.backend)
         return (h @ self._lm_head())[:, 0].to(torch.float32)
 
+    def _embed(self, batch: dict):
+        """-> (x (B, S, D), n_prefix): the token embeddings.  The modality
+        prefix of the frontend families is not ported (the constructor
+        refuses those configs), so n_prefix is 0."""
+        return self.tok_embed[self._ids(batch["tokens"])], 0
+
+    def _body_train(self, x: torch.Tensor, positions: torch.Tensor,
+                    enc_out=None, want_cache: bool = False):
+        """The full-sequence forward of every segment -> (x (B, S, D),
+        caches {"seg_00": [{"k", "v"} per layer]} if `want_cache`, else
+        {}).  No final norm."""
+        if enc_out is not None:
+            raise NotImplementedError(
+                "the encoder-decoder is not ported yet "
+                "(ROADMAP.md queue 1, item 8)")
+        caches = {}
+        for i, (kind, _, _) in enumerate(segments_for(self.cfg)):
+            x, cache = run_stack_train(
+                self.segments[_seg_key(i)], x, self.cfg, kind, positions,
+                want_cache=want_cache, backend=self.backend)
+            if want_cache:
+                caches[_seg_key(i)] = cache
+        return x, caches
+
+    def _positions(self, s: int) -> torch.Tensor:
+        return torch.arange(s, dtype=torch.float32, device=self.device)
+
     # --------------------------------------------------------------- prefill
     @torch.inference_mode()
     def prefill(self, batch: dict):
         """batch["tokens"] (B, S) -> (last-token logits (B, V) f32,
         caches {"seg_00": [{"k", "v"} (B, S, Hkv, hd) per layer]})."""
-        cfg = self.cfg
-        toks = self._ids(batch["tokens"])
-        x = self.tok_embed[toks]
-        positions = torch.arange(x.shape[1], dtype=torch.float32,
-                                 device=self.device)
-        caches = {}
-        for i, (kind, _, _) in enumerate(segments_for(cfg)):
-            x, caches[_seg_key(i)] = run_stack_train(
-                self.segments[_seg_key(i)], x, cfg, kind, positions,
-                want_cache=True, backend=self.backend)
+        x, _ = self._embed(batch)
+        x, caches = self._body_train(x, self._positions(x.shape[1]),
+                                     want_cache=True)
         return self._logits(x[:, -1:]), caches
 
     # ----------------------------------------------------------------- cache

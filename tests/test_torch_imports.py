@@ -5,8 +5,9 @@ and a subprocess in which `jax` and `repro` cannot be imported at all that
 imports the port, runs a tiny pass on the CPU (DP-means, OFL and
 BP-means), publishes it and serves one top-k query from it, replicates it
 over a loopback `DeltaChannel`, recovers it from a `DeltaWAL`, then builds
-`reduced(qwen3-4b)` on the CPU and serves two requests through the
-language model's `ServeEngine`.
+`reduced(qwen3-4b)` on the CPU, serves two requests through the
+language model's `ServeEngine`, curates the embeddings of two token
+batches, and imports the train-while-serve launcher and every example.
 """
 import ast
 import os
@@ -93,6 +94,17 @@ lm = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
 done = ServeEngine(lm, n_slots=2, cache_len=16).run(
     [Request(uid=i, prompt=np.arange(3) + i, max_new=2) for i in range(2)])
 assert [len(r.out) for r in done] == [2, 2]
+from repro_torch.data import TokenPipeline
+from repro_torch.data.curation import curate, embed_sequences
+emb = embed_sequences(lm, [TokenPipeline(cfg.vocab, 4, 8).batch_at(s)
+                           for s in range(2)])
+rep = curate(emb, lam=1.0, pb=4, k_max=8)
+assert emb.shape == (8, cfg.d_model) and rep.n_points == 8
+from repro_torch.launch import serve_clusters
+from repro_torch.examples import (
+    crash_recovery, data_curation, observability, quickstart,
+    retrieval_index, serve_lm, streaming_clusters)
+assert serve_clusters.ServeDemoConfig().device == "cuda"
 assert not _build._LIBS   # the CPU path never builds or loads a kernel
 print("OK", int(res.pool.count))
 """
