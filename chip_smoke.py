@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,serve_clusters,curation,examples]
+  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,serve_clusters,curation,examples]
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
@@ -16,8 +16,10 @@ the port's bitwise invariants on the card, runs the paper's multi-process
 OCC cluster (4 propose worker processes, followers, a worker death) and
 its crash-recoverable variant (a master killed and a follower promoted,
 the promoted master's WAL recovered) on the card against the fused
-single-process pass, and serves the language model qwen3-4b (prefill and
-the slot engine's decode) at full width and depth.  Then the system's
+single-process pass, serves the language model qwen3-4b (prefill and
+the slot engine's decode) at full width and depth, and trains granite-3-2b
+at full width and depth (six AdamW steps of 4 x 4096 tokens through the
+rmsnorm and swiglu kernels' forward and backward).  Then the system's
 remaining entry points: the train-while-serve pipeline (two tenants'
 trainer threads, sixteen client threads behind a coalescing router, a QoS
 A/B of priority lanes against FIFO, every response audited), OCC data
@@ -47,10 +49,10 @@ import time
 
 ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper", "ofl",
               "bp_means", "fig3", "retrieval", "serve", "invariants",
-              "cluster", "ha", "lm_serve", "serve_clusters", "curation",
-              "examples")
+              "cluster", "ha", "lm_serve", "train", "serve_clusters",
+              "curation", "examples")
 KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream",
-           "flash_attention", "rmsnorm", "swiglu")
+           "flash_attention", "rmsnorm", "swiglu", "rmsnorm_bwd", "swiglu_bwd")
 SOURCES = ("dpmeans_assign", "topk_stream", "flash_attention", "rmsnorm",
            "swiglu")     # csrc/<name>.cu
 
@@ -80,6 +82,9 @@ OBS_OVERHEAD_LIMIT_PCT = 2.0
 # and 4,096 to bring the ofl, bp_means and fig3 phases nearer 150 s).
 OFL_INV_N = 4096
 BP_INV_N = 2048
+# Points behind the DP-means invariants on the card (cut from 65,536 to
+# bring the whole script nearer 800 s once the train phase came in).
+DP_INV_N = 32_768
 # Distances agree to this fraction of ||x||^2 + ||c||^2: the scale of the
 # expanded form's cancellation (the kernel and torch.matmul sum D products
 # in different orders).
@@ -89,9 +94,12 @@ LAT_REQUESTS = 2048
 # Language-model kernels against their plain versions on the card: f32
 # outputs within these multiples of max(1, max |plain|) (flash: the 2e-5
 # of an f32 attention output; rmsnorm, swiglu: a few f32 ulps, both sum or
-# divide in another order), bf16 outputs within one bf16 ulp at the
-# output's largest magnitude (both round the same f32 value once).
-LM_TOL_F32 = {"flash_attention": 2e-5, "rmsnorm": 1e-6, "swiglu": 1e-6}
+# divide in another order; rmsnorm's backward 1e-5: two row sums and a
+# difference of two terms for dx, and dw sums 16,384 rows in another
+# order), 16-bit outputs within one ulp of their type (bf16 or f16) at the
+# output's largest magnitude (both round nearly the same f32 value once).
+LM_TOL_F32 = {"flash_attention": 2e-5, "rmsnorm": 1e-6, "swiglu": 1e-6,
+              "rmsnorm_bwd": 1e-5, "swiglu_bwd": 1e-6}
 # Full-width f32 qwen3-4b (2 layers): prefill logits with the kernels and
 # with the plain versions agree within this multiple of max(1, max |logit|).
 LOGIT_TOL = 1e-4
@@ -119,6 +127,26 @@ CUR_BATCH = 16
 CUR_SEQ = 256
 CUR_PB = 256
 CUR_K_MAX = 512
+# Training granite-3-2b at full width and depth: SHAPES["train_4k"]'s
+# sequence, its global batch of 256 cut to 4 for one card; six steps, the
+# first three held against a run on the plain versions from the same state.
+TRAIN_BATCH = 4
+TRAIN_SEQ = 4096
+TRAIN_STEPS = 6
+TRAIN_PLAIN_STEPS = 3
+# bf16 at 40 layers: loss and grad norm of the kernels' run against the
+# plain versions' within these fractions.  The two runs round the
+# activations and the gradients to bf16 at other points (the kernels round
+# each rmsnorm and swiglu output and gradient once from f32; autograd of the
+# plain versions rounds where its ops do), and the AdamW steps carry the
+# differences into the next steps' weights; a wrong gradient moves the grad
+# norm by its own scale.
+TRAIN_LOSS_TOL = 0.01
+TRAIN_GNORM_TOL = 0.02
+# f32 at 2 layers: loss relative, and each gradient's max abs difference
+# against its own max abs.
+TRAIN_F32_LOSS_RTOL = 1e-5
+TRAIN_F32_GRAD_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -1737,7 +1765,7 @@ class Smoke:
             def propose(self, pool, x_e, state_e):
                 d2, idx = nearest_center(pool, x_e, backend="plain")
                 return d2 > _lam2(self.lam, d2.dtype), x_e, (d2, idx), idx
-        x_np = self._dp_data()[:65536]
+        x_np = self._dp_data()[:DP_INV_N]
         x = torch.as_tensor(x_np, device=self.dev)
         lam, k_max, pb = 4.0, 512, 2048
 
@@ -1763,7 +1791,8 @@ class Smoke:
         # stream in ragged pieces + flush == one-shot first pass
         eng_s = OCCEngine(DPMeansTransaction(lam, k_max), pb, device="cuda")
         parts = [eng_s.partial_fit(x[a:b]) for a, b in
-                 ((0, 1000), (1000, 30001), (30001, 47777), (47777, 65536))]
+                 ((0, 1000), (1000, 15001), (15001, 23889),
+                  (23889, DP_INV_N))]
         parts.append(eng_s.flush())
         parts = [p for p in parts if p is not None]
         r1 = full[0]
@@ -2038,8 +2067,9 @@ class Smoke:
         scale = float(want.float().abs().max())
         if got.dtype == torch.float32:
             tol = LM_TOL_F32[kernel] * max(1.0, scale)
-        else:
-            tol = 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+        else:   # one ulp: 7 mantissa bits in bf16, 10 in f16
+            bits = 10 if got.dtype == torch.float16 else 7
+            tol = 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - bits)
         check(err <= tol, f"{kernel} {case}: max abs err {err} > {tol}")
         self.max_abs_err[kernel] = max(self.max_abs_err[kernel], err)
         if not quiet:
@@ -2146,6 +2176,7 @@ class Smoke:
         self._rmsnorm_kernels(randn)
         self._compiled_code()
         self._time_lm_kernels(randn)
+        self._bwd_kernels()
 
     def _rmsnorm_f16(self):
         """rmsnorm on float16 against its plain version: within 1e-2 (the
@@ -2438,12 +2469,150 @@ class Smoke:
                 res[f"{name}_unavailable"] = str(e).splitlines()[0][:200]
         return res
 
+    def _bwd_kernels(self):
+        """The backward kernels of the training path against their plain
+        versions (`ref.rmsnorm_bwd_ref`, `ref.swiglu_bwd_ref`): rmsnorm's
+        in f32, bf16 and f16 at granite-3-2b's and qwen3-4b's training
+        widths, at decode rows, at a 3-d batch and at widths off the pack
+        (33, 1000); swiglu's in f32 and bf16 at both models' d_ff, at
+        decode rows, odd sizes and a misaligned view.  Then two calls give
+        the same bits, each row's dx (and each element's swiglu gradient)
+        does not depend on the other rows, what the wrappers refuse, and
+        their times at the training shapes beside the bound, the plain
+        version and, for rmsnorm, `torch.autograd.grad` through
+        `F.rms_norm`."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+        from repro_torch.kernels.swiglu import swiglu_bwd
+        g = torch.Generator(device=self.dev).manual_seed(self.seed + 320)
+        f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+        tags = {f32: "f32", bf16: "bf16", f16: "f16"}
+
+        def randn(shape, dt, mul=1.0):
+            return (torch.randn(shape, generator=g, device=self.dev)
+                    * mul).to(dt)
+        for dt in (f32, bf16, f16):
+            for shape in ((16384, 2048), (16384, 2560), (4, 2560),
+                          (2, 3, 2048), (7, 33), (333, 1000)):
+                x, dy = randn(shape, dt), randn(shape, dt)
+                w = randn(shape[-1:], dt)
+                dx, dw = rmsnorm_bwd(x, w, dy, 1e-6)
+                px, pw = ref.rmsnorm_bwd_ref(x, w, dy, 1e-6)
+                self._lm_agree("rmsnorm_bwd", f"{tags[dt]} {shape} dx", dx, px)
+                self._lm_agree("rmsnorm_bwd", f"{tags[dt]} {shape} dw", dw, pw)
+        for dt in (f32, bf16):
+            for shape in ((16384, 8192), (16384, 9728), (4, 9728), (5, 17)):
+                a, u, dy = randn(shape, dt, 3.0), randn(shape, dt), \
+                    randn(shape, dt)
+                dg, du = swiglu_bwd(a, u, dy)
+                pg, pu = ref.swiglu_bwd_ref(a, u, dy)
+                self._lm_agree("swiglu_bwd", f"{tags[dt]} {shape} dgate", dg,
+                               pg)
+                self._lm_agree("swiglu_bwd", f"{tags[dt]} {shape} dup", du, pu)
+            flat = randn((1001,), dt, 3.0)
+            a, u, dy = flat[1:], randn((1000,), dt), randn((1000,), dt)
+            dg, du = swiglu_bwd(a, u, dy)
+            pg, pu = ref.swiglu_bwd_ref(a, u, dy)
+            self._lm_agree("swiglu_bwd", f"{tags[dt]} misaligned dgate", dg, pg)
+            self._lm_agree("swiglu_bwd", f"{tags[dt]} misaligned dup", du, pu)
+        # two calls, the same bits; a row alone, the same bits
+        x, w, dy = randn((16384, 2048), bf16), randn((2048,), bf16), \
+            randn((16384, 2048), bf16)
+        a, u, dz = randn((16384, 8192), bf16, 3.0), randn((16384, 8192), bf16), \
+            randn((16384, 8192), bf16)
+        dx, dw = rmsnorm_bwd(x, w, dy)
+        dx2, dw2 = rmsnorm_bwd(x, w, dy)
+        dg, du = swiglu_bwd(a, u, dz)
+        dg2, du2 = swiglu_bwd(a, u, dz)
+        check(torch.equal(dx, dx2) and torch.equal(dw, dw2)
+              and torch.equal(dg, dg2) and torch.equal(du, du2),
+              "backward kernels: two calls give the same bits")
+        for r in (0, 5000, 16383):
+            dxr, _ = rmsnorm_bwd(x[r:r + 1], w, dy[r:r + 1])
+            dgr, dur = swiglu_bwd(a[r:r + 1], u[r:r + 1], dz[r:r + 1])
+            check(torch.equal(dxr[0], dx[r]) and torch.equal(dgr[0], dg[r])
+                  and torch.equal(dur[0], du[r]),
+                  f"backward kernels: row {r} alone gives other bits")
+        del dx2, dw2, dg2, du2
+        wg = w.clone().requires_grad_(True)
+        for what, call, exc in (
+                ("swiglu_bwd f16", lambda: swiglu_bwd(
+                    x.half(), x.half(), x.half()), TypeError),
+                ("dy shape", lambda: rmsnorm_bwd(x, w, dy[:7]), ValueError),
+                ("dy dtype", lambda: rmsnorm_bwd(x, w, dy.float()),
+                 TypeError),
+                ("swiglu_bwd shapes", lambda: swiglu_bwd(a, u, dz[:3]),
+                 ValueError),
+                ("needs a gradient", lambda: rmsnorm_bwd(x, wg, dy),
+                 RuntimeError)):
+            try:
+                call()
+            except exc:
+                continue
+            raise CheckFailed(f"backward kernels: {what} must raise "
+                              f"{exc.__name__}")
+        emit({"phase": "lm_kernels", "backward": True, "bitwise_repeat": True,
+              "row_independent": True, "raises": True,
+              "max_abs_err": {n: self.max_abs_err[n]
+                              for n in ("rmsnorm_bwd", "swiglu_bwd")}})
+        del x, w, dy, a, u, dz, dx, dw, dg, du
+        torch.cuda.empty_cache()
+        # times: granite-3-2b's training shape is the main one
+        for dt in (bf16, f32, f16):
+            for d in (2048, 2560):
+                x, dy = randn((16384, d), dt), randn((16384, d), dt)
+                w = randn((d,), dt)
+                xg = x.clone().requires_grad_(True)
+                wg = w.clone().requires_grad_(True)
+                main = dt == bf16 and d == 2048
+                self._time_kernel(
+                    "rmsnorm_bwd",
+                    "train" if main else f"(16384, {d}) {tags[dt]}",
+                    lambda: rmsnorm_bwd(x, w, dy, 1e-6),
+                    lambda: ref.rmsnorm_bwd_ref(x, w, dy, 1e-6),
+                    flops=12.0 * x.numel(),
+                    nbytes=x.element_size() * (3.0 * x.numel() + 2 * d),
+                    library=lambda: torch.autograd.grad(
+                        F.rms_norm(xg, (d,), wg, 1e-6), (xg, wg), dy),
+                    x=[16384, d], dtype=str(dt).replace("torch.", ""),
+                    library_call="torch.autograd.grad through F.rms_norm "
+                                 "(its forward included)")
+                del x, dy, w, xg, wg
+        for dt in (bf16, f32):
+            for dff in (8192, 9728):
+                a, u, dy = (randn((16384, dff), dt, 3.0),
+                            randn((16384, dff), dt), randn((16384, dff), dt))
+                main = dt == bf16 and dff == 8192
+                self._time_kernel(
+                    "swiglu_bwd",
+                    "train" if main else f"(16384, {dff}) {tags[dt]}",
+                    lambda: swiglu_bwd(a, u, dy),
+                    lambda: ref.swiglu_bwd_ref(a, u, dy),
+                    flops=12.0 * a.numel(),
+                    nbytes=a.element_size() * 5.0 * a.numel(),
+                    gate=[16384, dff], dtype=str(dt).replace("torch.", ""))
+                del a, u, dy
+                torch.cuda.empty_cache()
+
     def _lm_counts(self):
         from repro_torch.kernels import ops
         return {"flash_attention": ops.FLASH_LAUNCHES,
                 "rmsnorm": ops.RMSNORM_LAUNCHES,
                 "rmsnorm_one_read": ops.RMSNORM_ONE_READ_LAUNCHES,
                 "swiglu": ops.SWIGLU_LAUNCHES}
+
+    def _train_counts(self):
+        """The forward and backward kernels' launches of the training path
+        (rmsnorm by kernel: one read or two passes)."""
+        from repro_torch.kernels import ops
+        return {"rmsnorm": ops.RMSNORM_LAUNCHES,
+                "rmsnorm_one_read": ops.RMSNORM_ONE_READ_LAUNCHES,
+                "swiglu": ops.SWIGLU_LAUNCHES,
+                "rmsnorm_bwd": ops.RMSNORM_BWD_LAUNCHES,
+                "swiglu_bwd": ops.SWIGLU_BWD_LAUNCHES,
+                "flash_attention": ops.FLASH_LAUNCHES}
 
     def lm_serve(self):
         """qwen3-4b served by the port: at full width and 2 layers in f32,
@@ -2654,6 +2823,284 @@ class Smoke:
                 "profiled_wall_ms": wall * 1e3, "unprofiled_step_p50_ms":
                     p50 * 1e3,
                 "device_idle_share": max(0.0, 1 - busy / 1e6 / p50)}
+
+    # ------------------------------------------------------------- train
+    def train(self):
+        """granite-3-2b trained by the port at full width and depth (40
+        layers, d 2048, 32/8 heads of 64, d_ff 8192, vocab 49155, tied
+        embeddings; bf16, remat "full", chunked attention): six
+        `make_train_step` steps of TRAIN_BATCH x TRAIN_SEQ tokens from
+        `TokenPipeline` with exact launch counts for a step, every loss
+        finite, the first three steps' loss and grad norm against a run on
+        the plain versions from the same state, step time, tokens/s, peak
+        memory and the model-FLOP share.  Then at full width and 2 layers:
+        the loss and every gradient in f32 against the plain versions, and
+        in bf16 two three-step runs from one state bitwise equal, and a
+        `CheckpointManager` save after step 2, restore and step 3 equal to
+        the straight run bitwise.  No plain backward runs."""
+        from repro_torch.configs import TrainConfig, get_arch
+        from repro_torch.data.tokens import TokenPipeline
+        from repro_torch.kernels import ref
+        self._ensure_built()
+        cfg = get_arch("granite-3-2b")
+        check(cfg.n_layers == 40 and cfg.d_model == 2048 and cfg.d_ff == 8192
+              and cfg.dtype == "bfloat16" and cfg.remat == "full"
+              and cfg.attn_impl == "chunked" and cfg.tie_embeddings,
+              "train: granite-3-2b's configuration")
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                           total_steps=TRAIN_STEPS)
+        pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                             seed=self.seed)
+        n, tokens = cfg.n_layers, TRAIN_BATCH * TRAIN_SEQ
+        # per step with remat "full": each block's two norms and its swiglu
+        # run again in the backward's recompute
+        per_step = {"rmsnorm": 4 * n + 1, "rmsnorm_one_read": 4 * n + 1,
+                    "swiglu": 2 * n, "rmsnorm_bwd": 2 * n + 1,
+                    "swiglu_bwd": n, "flash_attention": 0}
+        plain_bwd = []
+        saved = (ref.rmsnorm_bwd_ref, ref.swiglu_bwd_ref)
+
+        def guard(fn):
+            def counted(*a, **kw):
+                plain_bwd.append(fn.__name__)
+                return fn(*a, **kw)
+            return counted
+        ref.rmsnorm_bwd_ref, ref.swiglu_bwd_ref = map(guard, saved)
+        try:
+            res = self._train_full(cfg, tcfg, pipe, per_step, tokens)
+            res["f32_2_layers"] = self._train_f32(cfg, pipe)
+            res["determinism_2_layers"] = self._train_determinism(
+                cfg, tcfg, pipe)
+        finally:
+            ref.rmsnorm_bwd_ref, ref.swiglu_bwd_ref = saved
+        check(not plain_bwd, f"train: plain backward versions ran on the "
+              f"card: {sorted(set(plain_bwd))}")
+        emit({"phase": "train", "arch": "granite-3-2b", "card": self.card,
+              **res})
+
+    def _train_full(self, cfg, tcfg, pipe, per_step, tokens) -> dict:
+        torch = self.torch
+        import contextlib
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model
+        from repro_torch.training import make_train_step, train_state_init
+        seed = self.seed + 500
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(seed))
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        probe = {k: params[k][:4].clone() for k in ("tok_embed",
+                                                    "segments.seg_00.0.wq")}
+        n_params = sum(p.numel() for p in params.values())
+        state = train_state_init(params, tcfg)
+        step = make_train_step(model, tcfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        mets, times, first = [], [], None
+        for s in range(TRAIN_STEPS):
+            # the last step under the profiler (device activity only): a
+            # step is device-bound, so the trace costs it little time
+            prof = profile(activities=[ProfilerActivity.CUDA]) \
+                if s == TRAIN_STEPS - 1 else contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with prof:
+                state, m = step(state, pipe.batch_at(s))
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            mets.append({k: float(v) for k, v in m.items()})
+            if first is None:
+                first = self._train_counts()
+        counts = self._train_counts()
+        # ----------------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        breakdown = self._step_breakdown(prof, times[-1])
+        check(first == per_step,
+              f"train: launches of one step {first}, expected {per_step}")
+        check(counts == {k: TRAIN_STEPS * v for k, v in per_step.items()},
+              f"train: launches of {TRAIN_STEPS} steps {counts}")
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                  for m in mets) and [int(m["step"]) for m in mets]
+              == list(range(1, TRAIN_STEPS + 1)),
+              f"train: losses and grad norms finite, steps counted: {mets}")
+        self.path_launches["train"] = {k: v for k, v in counts.items()
+                                       if k != "rmsnorm_one_read"}
+        # The plain versions from the same state: the same weights drawn
+        # again from the seed (checked), zero moments, step 0.
+        del state
+        torch.cuda.empty_cache()
+        model.init(torch.Generator(device=self.dev).manual_seed(seed))
+        check(all(torch.equal(params[k][:4], v) for k, v in probe.items()),
+              "train: the weights drawn again from the seed are the same")
+        state = train_state_init(params, tcfg)
+        plain = make_train_step(build_model(cfg, device="meta",
+                                            backend="plain"), tcfg)
+        ops.reset_launch_counts()
+        pmets, ptimes = [], []
+        for s in range(TRAIN_PLAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = plain(state, pipe.batch_at(s))
+            torch.cuda.synchronize()
+            ptimes.append(time.perf_counter() - t0)
+            pmets.append({k: float(v) for k, v in m.items()})
+        check(all(v == 0 for v in self._train_counts().values()),
+              "train: the plain run launched a kernel")
+        agree = []
+        for i, (k, p) in enumerate(zip(mets, pmets)):
+            dl = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+            dg = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
+            check(dl <= TRAIN_LOSS_TOL and dg <= TRAIN_GNORM_TOL
+                  and k["lr"] == p["lr"],
+                  f"train: step {i + 1} kernels {k} against plain {p}")
+            agree.append({"step": i + 1, "loss_rel": dl, "grad_norm_rel": dg})
+        del state, params, model, step, plain
+        torch.cuda.empty_cache()
+        steady = times[2:]
+        p50 = statistics.median(steady)
+        b, s_ = TRAIN_BATCH, TRAIN_SEQ
+        attn = 3 * 2.0 * b * s_ * s_ * cfg.n_heads * cfg.hd * cfg.n_layers
+        model_flops = 6.0 * n_params * tokens + attn
+        return {
+            "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "remat": cfg.remat, "attn_impl": cfg.attn_impl,
+            "batch": b, "seq": s_, "steps": TRAIN_STEPS, "params": n_params,
+            "init_s": init_s, "step_seconds": times,
+            "step_p50_s_steps_3_to_6": p50, "tokens_per_s": tokens / p50,
+            "peak_memory_gb": peak / 1e9,
+            "model_flops_per_step": model_flops,
+            "attention_flops_per_step": attn,
+            "model_flop_share_of_989_tflops": model_flops / p50 / PEAK_BF16_FLOPS,
+            "profiled_step": breakdown,
+            "metrics": mets, "launches_one_step": first,
+            "launches": counts, "plain_metrics": pmets,
+            "plain_step_seconds": ptimes, "kernels_vs_plain": agree,
+            "tol": {"loss": TRAIN_LOSS_TOL, "grad_norm": TRAIN_GNORM_TOL}}
+
+    def _step_breakdown(self, prof, wall_s: float) -> dict:
+        """Device time of a profiled train step by kind of work: the port's
+        kernels, the matrix products (cuBLAS / CUTLASS GEMMs) and the rest
+        (PyTorch's elementwise, softmax, reduction and copy kernels), the
+        twelve largest kernels by name, and the device's idle share of the
+        step's wall time."""
+        events = _device_events(prof)
+        busy = sum(dt for _, dt, _ in events)
+        if busy <= 0:
+            return {"idle": "not measured (no device events)"}
+        ours = ("rmsnorm", "swiglu")
+        gemm = ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "Kernel2")
+        kinds = {"port_kernels": 0.0, "matmuls": 0.0, "other": 0.0}
+        for name, dt, _ in events:
+            if any(k in name for k in ours):
+                kinds["port_kernels"] += dt
+            elif any(k in name for k in gemm):
+                kinds["matmuls"] += dt
+            else:
+                kinds["other"] += dt
+        top = sorted(events, key=lambda e: -e[1])[:12]
+        return {"wall_s": wall_s, "device_busy_s": busy / 1e6,
+                "device_idle_share": max(0.0, 1 - busy / 1e6 / wall_s),
+                "kernels": sum(c for _, _, c in events),
+                "by_kind_s": {k: v / 1e6 for k, v in kinds.items()},
+                "top": [{"name": n[:120], "s": dt / 1e6, "count": c}
+                        for n, dt, c in top]}
+
+    def _train_f32(self, cfg, pipe) -> dict:
+        """Full width, 2 layers, f32: the loss and every gradient with the
+        kernels against the plain versions, on the same weights and batch."""
+        torch = self.torch
+        from repro_torch.models import build_model
+        from repro_torch.training import loss_and_grads
+        t0 = time.perf_counter()
+        cfg2 = cfg.replace(n_layers=2, dtype="float32")
+        model = build_model(cfg2, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(self.seed + 501))
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        batch = pipe.batch_at(0)
+        lk, gk = loss_and_grads(model, params, batch)
+        lp, gp = loss_and_grads(
+            build_model(cfg2, device="meta", backend="plain"), params, batch)
+        loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        worst, worst_name = 0.0, ""
+        for k in gp:
+            scale = float(gp[k].abs().max())
+            r = float((gk[k] - gp[k]).abs().max()) / max(scale, 1e-30)
+            if r > worst:
+                worst, worst_name = r, k
+        check(math.isfinite(float(lk)) and loss_rel <= TRAIN_F32_LOSS_RTOL
+              and worst <= TRAIN_F32_GRAD_TOL,
+              f"train f32: loss rel {loss_rel}, worst gradient {worst_name} "
+              f"{worst} of its max abs")
+        del model, params, gk, gp
+        torch.cuda.empty_cache()
+        return {"seconds": time.perf_counter() - t0,
+                "loss": float(lk), "loss_rel": loss_rel,
+                "worst_grad_err_over_max": worst, "worst_grad": worst_name,
+                "tol": {"loss_rel": TRAIN_F32_LOSS_RTOL,
+                        "grad": TRAIN_F32_GRAD_TOL}}
+
+    def _train_determinism(self, cfg, tcfg, pipe) -> dict:
+        """Full width, 2 layers, bf16: two three-step runs from one state
+        give the same bits, and so does a run saved by `CheckpointManager`
+        after step 2, restored and stepped once."""
+        torch = self.torch
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.convert import (
+            train_state_from_numpy, train_state_to_numpy,
+        )
+        from repro_torch.models import build_model
+        from repro_torch.training import make_train_step, train_state_init
+        t0 = time.perf_counter()
+        cfg2 = cfg.replace(n_layers=2)
+        model = build_model(cfg2, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(self.seed + 502))
+        init = {k: p.detach().clone() for k, p in model.named_parameters()}
+        step = make_train_step(model, tcfg)
+
+        def fresh():
+            return train_state_init({k: t.clone() for k, t in init.items()},
+                                    tcfg)
+
+        def run(state, s0, s1):
+            mets = []
+            for s in range(s0, s1):
+                state, m = step(state, pipe.batch_at(s))
+                mets.append({k: float(v) for k, v in m.items()})
+            return state, mets
+
+        def same(a, b):
+            return (torch.equal(a.opt.step, b.opt.step)
+                    and all(torch.equal(a.params[k], b.params[k])
+                            for k in a.params)
+                    and all(torch.equal(a.opt.mu[k], b.opt.mu[k])
+                            and torch.equal(a.opt.nu[k], b.opt.nu[k])
+                            for k in a.opt.mu))
+        a, ma = run(fresh(), 0, 3)
+        b, mb = run(fresh(), 0, 3)
+        check(ma == mb and same(a, b),
+              "train bf16: two runs from one state differ")
+        c, _ = run(fresh(), 0, 2)
+        t_ckpt = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = CheckpointManager(tmp)
+            saved = train_state_to_numpy(c)
+            mgr.save(2, saved)
+            del c
+            at, tree = mgr.restore(saved, device="cpu")   # its names only
+        c = train_state_from_numpy(tree, cfg2, device=self.dev)
+        t_ckpt = time.perf_counter() - t_ckpt
+        c, mc = run(c, 2, 3)
+        check(at == 2 and mc == ma[2:] and same(a, c),
+              "train bf16: save after step 2, restore, step 3 differs from "
+              "the straight run")
+        del a, b, c, model, init
+        torch.cuda.empty_cache()
+        return {"seconds": time.perf_counter() - t0,
+                "checkpoint_save_restore_s": t_ckpt, "steps": 3,
+                "bitwise_repeat": True, "bitwise_resume": True,
+                "metrics": ma}
 
     # ---------------------------------------------------- serve_clusters
     def serve_clusters(self):
@@ -2970,11 +3417,11 @@ class Smoke:
         the card: quickstart, streaming_clusters and crash_recovery (their
         integers equal to the same example's run on the CPU),
         observability with its multi-process act (`--ha`), retrieval_index
-        over the index the retrieval phase trained, serve_lm and
-        data_curation."""
+        over the index the retrieval phase trained, serve_lm, data_curation
+        and train_lm (its loss falls)."""
         from repro_torch.examples import (
             crash_recovery, data_curation, observability, quickstart,
-            retrieval_index, serve_lm, streaming_clusters,
+            retrieval_index, serve_lm, streaming_clusters, train_lm,
         )
         from repro_torch.kernels import ops
         self._ensure_built()
@@ -2995,7 +3442,8 @@ class Smoke:
                     ("retrieval_index", lambda: retrieval_index.main(
                         ["--quiet"], index=self.retrieval_built)),
                     ("serve_lm", lambda: serve_lm.main([])),
-                    ("data_curation", lambda: data_curation.main([]))):
+                    ("data_curation", lambda: data_curation.main([])),
+                    ("train_lm", lambda: _losses_of(train_lm.main, []))):
                 t0 = time.perf_counter()
                 try:
                     res[name] = call()
@@ -3006,7 +3454,9 @@ class Smoke:
         counts = {"dpmeans_assign": ops.ASSIGN_LAUNCHES,
                   "topk_stream": ops.TOPK_LAUNCHES,
                   "topk_multiprobe_stream": ops.TOPK_MP_LAUNCHES,
-                  **self._lm_counts()}
+                  **self._lm_counts(),
+                  "rmsnorm_bwd": ops.RMSNORM_BWD_LAUNCHES,
+                  "swiglu_bwd": ops.SWIGLU_BWD_LAUNCHES}
         # -----------------------------------------------------------------
         self.path_launches["examples"] = counts
         # (the examples' language models take chunked attention, as the
@@ -3025,14 +3475,16 @@ class Smoke:
         q, st, cr = (res["quickstart"], res["streaming_clusters"],
                      res["crash_recovery"])
         obs, ret = res["observability"], res["retrieval_index"]
-        lm, dc = res["serve_lm"], res["data_curation"]
+        lm, dc, tr = res["serve_lm"], res["data_curation"], res["train_lm"]
         check(q["K"] == q["K_serial"] and st["ofl_stream_eq_oneshot"]
               and cr["identical"] and obs["ha"]["promotions"] == 1
               and ret["sweep"]["p_all"]["exact_vs_flat"]
               and ret["k_centers"] >= 100_000
               and lm["requests"] == 6 and lm["new_tokens"] == 48
-              and dc["dup_fraction"] > 0,
-              "examples: outputs")
+              and dc["dup_fraction"] > 0
+              and math.isfinite(tr["final_loss"])
+              and tr["final_loss"] < tr["first_loss"] - 0.1,
+              f"examples: outputs (train_lm losses {tr})")
         emit({"phase": "examples", "card": self.card, "seconds": secs,
               "launches": counts,
               "quickstart": q, "streaming_clusters": {
@@ -3045,6 +3497,7 @@ class Smoke:
               "serve_lm": {"requests": lm["requests"],
                            "new_tokens": lm["new_tokens"]},
               "data_curation": {k: v for k, v in dc.items() if k != "z"},
+              "train_lm": tr,
               "card_eq_cpu": sorted(cpu)})
 
     def kernel_rows(self) -> list[dict]:
@@ -3052,13 +3505,15 @@ class Smoke:
         against its plain version, and its times at the shape its main
         path gives it (dpmeans_assign: the paper's propose shape; top-k:
         the serving microbatch; the language-model kernels: qwen3-4b's
-        prefill), with every timed shape under "shapes".  The language
+        prefill; their backward kernels: granite-3-2b's training step),
+        with every timed shape under "shapes".  The language
         model's launches are those of its prefill plus its engine run."""
         rows = []
         main_shape = {"dpmeans_assign": "paper", "topk_stream": "serve_flat",
                       "topk_multiprobe_stream": "serve_multiprobe",
                       "flash_attention": "prefill", "rmsnorm": "prefill",
-                      "swiglu": "prefill"}
+                      "swiglu": "prefill", "rmsnorm_bwd": "train",
+                      "swiglu_bwd": "train"}
         sources = {"dpmeans_assign": ("dpmeans_assign.cu",
                                       "src/repro/kernels/dpmeans_assign.py:86"),
                    "topk_stream": ("topk_stream.cu",
@@ -3070,7 +3525,13 @@ class Smoke:
                        "flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:72"),
                    "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25"),
-                   "swiglu": ("swiglu.cu", "src/repro/kernels/swiglu.py:24")}
+                   "swiglu": ("swiglu.cu", "src/repro/kernels/swiglu.py:24"),
+                   # the backward of the same TPU kernel, which has no VJP
+                   # (the JAX package differentiates its plain version)
+                   "rmsnorm_bwd": ("rmsnorm.cu",
+                                   "src/repro/kernels/rmsnorm.py:25"),
+                   "swiglu_bwd": ("swiglu.cu",
+                                  "src/repro/kernels/swiglu.py:24")}
         for name in KERNELS:
             src, replaces = sources[name]
             launches = self.main_launches.get(name)
@@ -3094,6 +3555,8 @@ class Smoke:
                 row["launches_retrieval"] = self.retrieval_launches
                 row["launches_ofl"] = self.ofl_launches
                 row["launches_fig3"] = self.fig3_launches
+            if name.endswith("_bwd"):
+                row["backward_of"] = replaces
             if name in ("flash_attention", "rmsnorm", "swiglu"):
                 row["launches_by_path"] = {
                     path: c[name] for path, c in self.lm_launches.items()}
@@ -3116,6 +3579,22 @@ class Smoke:
             row["shapes"] = shapes
             rows.append(row)
         return rows
+
+
+def _losses_of(main, argv) -> dict:
+    """Run a training example's `main(argv)` with its output captured:
+    the first printed step loss and the final loss it returns."""
+    import contextlib
+    import io
+    import re
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        final = main(argv)
+    losses = [float(v) for v in re.findall(r"^step +\d+ loss +([\d.]+)",
+                                           buf.getvalue(), re.M)]
+    check(bool(losses), f"no step losses printed: {buf.getvalue()[-500:]}")
+    return {"first_loss": losses[0], "final_loss": float(final),
+            "printed_steps": len(losses)}
 
 
 def _same(a, b) -> bool:

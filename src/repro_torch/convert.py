@@ -7,7 +7,13 @@ from the same pool, and the same published state can be served by both.
 A language model's parameter tree (`jax.tree.map(np.asarray, params)`)
 becomes a port `Model` (`lm_params_from_numpy`), and a port cache goes back
 to the JAX layout (`lm_caches_to_numpy`), so both packages' models can be
-run on the same weights and compared.
+run on the same weights and compared.  A training state goes both ways
+(`train_state_from_numpy`, `train_state_to_numpy`): the JAX package's
+`TrainState` (params, AdamW step / mu / nu, error-feedback residuals, each
+segment's leaves stacked on a leading layer dim) and the port's (tensors
+keyed by the port's parameter names), so a state saved by either package's
+`CheckpointManager` restores in the other under the JAX package's leaf
+names.
 """
 from __future__ import annotations
 
@@ -16,13 +22,17 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.occ import CenterPool, OCCStats
-from repro_torch.models.model import Model, _seg_key
+from repro_torch.models.model import Model, _seg_key, layer_of
 from repro_torch.models.transformer import segments_for
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.optim.compression import EFState
 from repro_torch.serving.snapshot import HierIndex, ModelSnapshot
+from repro_torch.training.step import TrainState
 
 __all__ = ["pool_from_numpy", "pool_to_numpy", "stats_to_numpy",
            "snapshot_from_numpy", "hier_from_numpy", "lm_params_from_numpy",
-           "lm_caches_to_numpy"]
+           "lm_caches_to_numpy", "train_state_from_numpy",
+           "train_state_to_numpy"]
 
 
 def pool_from_numpy(centers, mask, count, overflow,
@@ -97,7 +107,7 @@ def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda",
     model = Model(cfg, device=device)
 
     def put(param, a):
-        a = np.asarray(a)
+        a = _np(a)
         if tuple(a.shape) != tuple(param.shape):
             raise ValueError(f"shape {a.shape} does not match the port's "
                              f"{tuple(param.shape)}")
@@ -116,7 +126,7 @@ def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda",
                              f"!= port {sorted(layers[0].keys())}")
         for name, a in stacked.items():
             for layer in range(count):
-                put(layers[layer][name], np.asarray(a)[layer])
+                put(layers[layer][name], _np(a)[layer])
     return model
 
 
@@ -127,3 +137,87 @@ def lm_caches_to_numpy(caches: dict) -> dict:
                                   .cpu().numpy() for c in layers])
                   for name in layers[0]}
             for seg, layers in caches.items()}
+
+
+def _np(a) -> np.ndarray:
+    """A leaf (numpy array, tensor on any device, scalar) as numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _from_jax_layout(tree: dict, names, device) -> dict[str, torch.Tensor]:
+    """Per-name f32 tensors on `device` from a JAX-layout tree (a segment's
+    leaves stacked over layers)."""
+    out = {}
+    for n in names:
+        at = layer_of(n)
+        a = (_np(tree[n]) if at is None
+             else _np(tree["segments"][at[0]][at[2]])[at[1]])
+        out[n] = torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+    return out
+
+
+def _to_jax_layout(named: dict[str, torch.Tensor]) -> dict:
+    """The JAX-layout numpy tree of per-name tensors: each segment's layers
+    stacked in layer order; bfloat16 widened to f32 (exact; numpy has no
+    bfloat16)."""
+    def host(t):
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.detach().cpu().numpy()
+    tree: dict = {}
+    stacks: dict = {}
+    for n, t in named.items():
+        at = layer_of(n)
+        if at is None:
+            tree[n] = host(t)
+        else:
+            stacks.setdefault(at[0], {}).setdefault(at[2], {})[at[1]] = t
+    if stacks:
+        tree["segments"] = {
+            seg: {leaf: np.stack([host(layers[i]) for i in sorted(layers)])
+                  for leaf, layers in leaves.items()}
+            for seg, leaves in stacks.items()}
+    return tree
+
+
+def train_state_from_numpy(tree, cfg, device: str | torch.device = "cuda"
+                           ) -> TrainState:
+    """The port's `TrainState` on `device` from a JAX-layout training state:
+    the JAX package's `TrainState` after `jax.tree.map(np.asarray, state)`,
+    or the tree a `CheckpointManager` restores into the structure of
+    `train_state_to_numpy` (numpy arrays or tensors).  Parameters in
+    cfg.dtype through `lm_params_from_numpy`; moments and residuals f32;
+    the step int32."""
+    model = lm_params_from_numpy(tree.params, cfg, device=device)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    dev = model.device
+    opt = AdamWState(
+        step=torch.as_tensor(np.array(_np(tree.opt.step), dtype=np.int32),
+                         device=dev),
+        mu=_from_jax_layout(tree.opt.mu, params, dev),
+        nu=_from_jax_layout(tree.opt.nu, params, dev))
+    ef = tree.ef
+    if isinstance(ef, tuple) and hasattr(ef, "residual"):
+        ef = EFState(_from_jax_layout(ef.residual, params, dev))
+    else:
+        ef = ()
+    return TrainState(params, opt, ef)
+
+
+def train_state_to_numpy(state: TrainState) -> TrainState:
+    """The port's `TrainState` in the JAX package's layout, as numpy: the
+    same NamedTuples (`TrainState`, `AdamWState`, `EFState`; their field
+    names are the JAX package's) over JAX-layout trees, so a
+    `CheckpointManager` of either package saves it under the JAX package's
+    leaf names."""
+    ef = state.ef
+    if isinstance(ef, EFState):
+        ef = EFState(_to_jax_layout(ef.residual))
+    return TrainState(
+        params=_to_jax_layout(state.params),
+        opt=AdamWState(step=np.asarray(_np(state.opt.step), dtype=np.int32),
+                       mu=_to_jax_layout(state.opt.mu),
+                       nu=_to_jax_layout(state.opt.nu)),
+        ef=ef)

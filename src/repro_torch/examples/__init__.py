@@ -8,6 +8,7 @@ repository's `examples/`:
   python -m repro_torch.examples.retrieval_index      [--quick] [--out F]
   python -m repro_torch.examples.serve_lm             [--device cpu]
   python -m repro_torch.examples.data_curation        [--device cpu]
+  python -m repro_torch.examples.train_lm             [--full-100m] [--device cpu]
 
 Each runs on the card unless `--device cpu` is passed, and its `main()`
 returns the numbers it prints.

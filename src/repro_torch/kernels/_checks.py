@@ -1,8 +1,10 @@
 """Input checks shared by the language-model kernel wrappers (`rmsnorm`,
 `swiglu`, `flash_attention`): the CUDA device, the element types the
 kernels are compiled for, the 16-byte alignment of their packed accesses,
-and the refusal of tensors that autograd would record (the kernels have no
-backward yet; the serving path runs under `torch.inference_mode()`)."""
+and the refusal of tensors that autograd would record: a kernel launched
+by hand records nothing.  Training reaches the rmsnorm and swiglu kernels
+through `ops`' autograd Functions, whose forward and backward run with
+autograd off; flash attention has no backward."""
 from __future__ import annotations
 
 import torch
@@ -36,15 +38,19 @@ def require_cuda(name: str, t, device: torch.device | None = None,
                         f"got {t.dtype}")
 
 
-def require_no_grad(**tensors) -> None:
-    """Raises if autograd would record a call on any of the tensors."""
+NO_GRAD_HINT = ("call it through kernels.ops, whose autograd Function "
+                "launches the backward kernel")
+
+
+def require_no_grad(hint: str = NO_GRAD_HINT, **tensors) -> None:
+    """Raises if autograd would record a call on any of the tensors; the
+    message ends with `hint`, what to do instead."""
     if not torch.is_grad_enabled():
         return
     for name, t in tensors.items():
         if t.requires_grad:
-            raise RuntimeError(
-                f"{name} requires a gradient; the kernel has no backward yet "
-                "(run under torch.inference_mode() or torch.no_grad())")
+            raise RuntimeError(f"{name} requires a gradient and a kernel "
+                               f"launched by hand records none: {hint}")
 
 
 def aligned16(*tensors) -> bool:

@@ -33,6 +33,26 @@
 // TPU wrapper's padding of the rows to a block multiple is a TPU tiling
 // matter and has no counterpart: the grid covers the rows exactly.
 
+// The backward (`rmsnorm_bwd`, new with the training path; the Pallas kernel
+// has no VJP, so the JAX package differentiates its plain version).  Given
+// the output gradient dy, with r = rsqrt(mean(x^2) + eps):
+//   dx = r (w dy) - x r^3 sum(w dy x) / d,   dw = sum over rows of dy (x r).
+// What bounds it: it must read x, dy (rows*D each) and w, and write dx and
+// dw, with about 10 operations an element: the memory rate bounds it.  At
+// granite-3-2b's training shape (16384, 2048) in bf16 that is 201 MB, or
+// 0.060 ms.
+// What the design does about it.  One warp per row, as the forward: a
+// first sweep over the row sums x^2 and (w dy) x (warp shuffles reduce
+// both), a second sweep re-reads the row (from L1 or L2; device memory
+// sees it once) and writes dx.  dw is a sum over every row, and it must be
+// deterministic (training resumes bit for bit), so no float atomics: each
+// block owns a fixed range of rows, each warp accumulates its rows' dy (x r)
+// into its own f32 row of shared memory (a lane owns its columns), the
+// block sums its warps in order into a partial row in device memory, and
+// a second small kernel sums the partials of every block in block order.
+// The grid is a function of (rows, D) alone (`kernels/rmsnorm.py:
+// bwd_blocks`), so two calls give the same bits.
+
 #include "pack.cuh"
 
 namespace {
@@ -163,6 +183,156 @@ int launch_packs(const void* x, const void* w, void* out, long long rows,
   }
 }
 
+
+// ---------------------------------------------------------------- backward
+
+// dx for every row of the block's range, and the block's dw partial: the
+// sum over those rows of dy (x r), into partial[blockIdx.x * d ...].
+// Dynamic shared memory: one f32 row per warp, of width d rounded up to
+// 32 packs.
+template <typename T>
+__global__ void __launch_bounds__(128)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   float* __restrict__ partial, long long rows, int d,
+                   float eps, int vec, long long rows_per_block) {
+  extern __shared__ float acc[];
+  constexpr int V = pack::Width<T>::N;
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // each warp's row of shared memory: d floats, rounded up to whole
+  // groups of 32 packs in the vec sweep (whose slots are permuted)
+  const int ld = vec ? (d + 32 * V - 1) / (32 * V) * (32 * V) : d;
+  for (int c = threadIdx.x; c < warps * ld; c += blockDim.x) acc[c] = 0.0f;
+  __syncthreads();
+  float* mine = acc + (size_t)warp * ld;
+  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  long long r1 = r0 + rows_per_block;
+  if (r1 > rows) r1 = rows;
+  for (long long row = r0 + warp; row < r1; row += warps) {
+    const T* xr = x + row * d;
+    const T* gr = dy + row * d;
+    T* orow = dx + row * d;
+    float ss = 0.0f, dot = 0.0f;
+    if (vec) {
+#pragma unroll 4
+      for (int c = lane * V; c < d; c += 32 * V) {
+        float a[V], g[V], h[V];
+        pack::load16(xr + c, a);
+        pack::load16(gr + c, g);
+        pack::load16(w + c, h);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          ss = fmaf(a[i], a[i], ss);
+          dot = fmaf(g[i] * h[i], a[i], dot);
+        }
+      }
+    } else {
+      for (int c = lane; c < d; c += 32) {
+        const float a = pack::to_f(xr[c]);
+        ss = fmaf(a, a, ss);
+        dot = fmaf(pack::to_f(gr[c]) * pack::to_f(w[c]), a, dot);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    const float r = rsqrtf(ss / (float)d + eps);
+    const float c3 = (r * r * r) * (dot / (float)d);
+    if (vec) {
+      for (int c = lane * V; c < d; c += 32 * V) {
+        float a[V], g[V], h[V], o[V];
+        pack::load16(xr + c, a);
+        pack::load16(gr + c, g);
+        pack::load16(w + c, h);
+        // column c + i at slot (c - lane V) + 32 i + lane: the warp's
+        // lanes touch 32 consecutive floats (no bank conflict)
+        float* acc_c = mine + (c - lane * V) + lane;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          o[i] = (g[i] * h[i]) * r - a[i] * c3;
+          acc_c[i * 32] += g[i] * (a[i] * r);
+        }
+        pack::store16(orow + c, o);
+      }
+    } else {
+      for (int c = lane; c < d; c += 32) {
+        const float a = pack::to_f(xr[c]);
+        const float g = pack::to_f(gr[c]);
+        orow[c] = pack::from_f<T>((g * pack::to_f(w[c])) * r - a * c3);
+        mine[c] += g * (a * r);
+      }
+    }
+  }
+  __syncthreads();
+  float* out = partial + (size_t)blockIdx.x * d;
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    // the vec sweep's slot of column c (the scalar sweep's is c)
+    const int q = c % (32 * V);
+    const int slot = vec ? (c - q) + (q % V) * 32 + q / V : c;
+    float s = 0.0f;
+    for (int k = 0; k < warps; ++k) s += acc[(size_t)k * ld + slot];
+    out[c] = s;
+  }
+}
+
+// dw[c] = the sum of partial[b * d + c] over the blocks b in order: 32
+// columns a block, 8 warps each summing every 8th block's partials in
+// order, then warp 0 summing the 8 sums in order.
+constexpr int RED_WARPS = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(32 * RED_WARPS)
+rmsnorm_dw_kernel(const float* __restrict__ partial, T* __restrict__ dw,
+                  int blocks, int d) {
+  __shared__ float part[RED_WARPS][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float s = 0.0f;
+  if (c < d)
+    for (int b = warp; b < blocks; b += RED_WARPS)
+      s += partial[(size_t)b * d + c];
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < d) {
+    float t = 0.0f;
+#pragma unroll
+    for (int k = 0; k < RED_WARPS; ++k) t += part[k][lane];
+    dw[c] = pack::from_f<T>(t);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+               void* dw, float* partial, long long rows, int d, float eps,
+               int vec, int warps, int blocks, cudaStream_t stream) {
+  if (rows <= 0 || blocks <= 0 || warps < 1 || warps > 4)
+    return (int)cudaErrorInvalidValue;
+  constexpr int G = 32 * pack::Width<T>::N;
+  const size_t ld = vec ? (size_t)(d + G - 1) / G * G : (size_t)d;
+  const size_t smem = (size_t)warps * ld * sizeof(float);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long per = (rows + blocks - 1) / blocks;
+  rmsnorm_bwd_kernel<T><<<blocks, 32 * warps, smem, stream>>>(
+      (const T*)x, (const T*)w, (const T*)dy, (T*)dx, partial, rows, d, eps,
+      vec, per);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rmsnorm_dw_kernel<T><<<(d + 31) / 32, 32 * RED_WARPS, 0, stream>>>(
+      partial, (T*)dw, blocks, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16 (x, w and out share it).  packs: the
@@ -186,5 +356,28 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* out, int dtype,
     return packs ? launch_packs<__half>(x, w, out, rows, d, eps, packs, s)
                  : launch<__half>(x, w, out, rows, d, eps, vec, s);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: dx (rows, d) and dw (d,) in x's type from x, w and dy of one
+// type (0 float32, 1 bfloat16, 2 float16).  partial: blocks * d f32 scratch.
+// warps (1-4) a block and blocks come from the wrapper
+// (`kernels/rmsnorm.py:bwd_warps`, `bwd_blocks`); vec: 1 when d is a
+// multiple of the 16-byte pack and x, dy, w and dx are 16-byte aligned.
+extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy,
+                           void* dx, void* dw, void* partial, int dtype,
+                           long long rows, int d, float eps, int vec,
+                           int warps, int blocks, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  float* p = (float*)partial;
+  if (dtype == 0)
+    return launch_bwd<float>(x, w, dy, dx, dw, p, rows, d, eps, vec, warps,
+                             blocks, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, p, rows, d, eps, vec,
+                                     warps, blocks, s);
+  if (dtype == 2)
+    return launch_bwd<__half>(x, w, dy, dx, dw, p, rows, d, eps, vec, warps,
+                              blocks, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -111,7 +111,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require_cuda("q", q)
     require_cuda("k", k, q.device, q.dtype)
     require_cuda("v", v, q.device, q.dtype)
-    require_no_grad(q=q, k=k, v=v)
+    require_no_grad(
+        "flash attention has no backward kernel; training runs the chunked "
+        "attention (attn_impl='chunked'), as the reference does, whose "
+        "flash kernel has no VJP (run this under torch.inference_mode() or "
+        "torch.no_grad())", q=q, k=k, v=v)
     b, h, s, dh = q.shape
     if dh not in HEAD_DIMS:
         raise ValueError(f"Dh={dh} is not one of {HEAD_DIMS}")

@@ -11,7 +11,14 @@ There is no fallback: a CUDA tensor reaches the plain version only when
 `backend="plain"` is asked for.  The serving primitives (`serve_assign`,
 `serve_topk`, `serve_topk_multiprobe`) add the query-prefix mask of a
 padded bucket.  The language model's primitives (`flash_attention`,
-`rmsnorm`, `swiglu`) follow the same rule.  Each kernel has a plain-int launch count,
+`rmsnorm`, `swiglu`) follow the same rule.  Where autograd would record
+`rmsnorm` or `swiglu` (training), the call goes through an autograd
+Function (`_RMSNormFn`, `_SwiGLUFn`): its forward runs the forward kernel
+and saves the inputs, its backward runs the backward kernel, on a CUDA
+tensor always (no fallback), and the plain backward versions
+(`ref.rmsnorm_bwd_ref`, `ref.swiglu_bwd_ref`) on a CPU tensor.  Under
+`torch.inference_mode()` or `no_grad` the forward kernel is called
+directly, as before.  Each kernel has a plain-int launch count,
 raised by one where the kernel is launched and nowhere else (under a lock:
 trainer, client and admission-queue threads launch at once), so a run can
 show that its main path went through the kernel.
@@ -28,8 +35,14 @@ from repro_torch.kernels.flash_attention import (
     check_shapes as _flash_check_shapes,
     flash_attention as _flash_attention,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm_launch as _rmsnorm_launch
-from repro_torch.kernels.swiglu import swiglu as _swiglu
+from repro_torch.kernels.rmsnorm import (
+    rmsnorm_bwd as _rmsnorm_bwd,
+    rmsnorm_launch as _rmsnorm_launch,
+)
+from repro_torch.kernels.swiglu import (
+    swiglu as _swiglu,
+    swiglu_bwd as _swiglu_bwd,
+)
 from repro_torch.kernels.topk_stream import (
     topk_multiprobe_stream as _topk_mp_stream,
     topk_stream as _topk_stream,
@@ -41,6 +54,7 @@ __all__ = ["assign", "pairwise_argmin", "serve_assign", "serve_topk",
            "flash_attention", "rmsnorm", "swiglu", "FLASH_LAUNCHES",
            "RMSNORM_LAUNCHES", "RMSNORM_ONE_READ_LAUNCHES",
            "RMSNORM_TWO_PASS_LAUNCHES", "SWIGLU_LAUNCHES",
+           "RMSNORM_BWD_LAUNCHES", "SWIGLU_BWD_LAUNCHES",
            "reset_launch_counts"]
 
 ASSIGN_LAUNCHES = 0
@@ -52,18 +66,22 @@ RMSNORM_LAUNCHES = 0           # both rmsnorm kernels; by kernel below
 RMSNORM_ONE_READ_LAUNCHES = 0
 RMSNORM_TWO_PASS_LAUNCHES = 0
 SWIGLU_LAUNCHES = 0
+RMSNORM_BWD_LAUNCHES = 0
+SWIGLU_BWD_LAUNCHES = 0
 _COUNTS_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
     global ASSIGN_LAUNCHES, PAIRWISE_ARGMIN_LAUNCHES, TOPK_LAUNCHES, \
         TOPK_MP_LAUNCHES, FLASH_LAUNCHES, RMSNORM_LAUNCHES, SWIGLU_LAUNCHES, \
-        RMSNORM_ONE_READ_LAUNCHES, RMSNORM_TWO_PASS_LAUNCHES
+        RMSNORM_ONE_READ_LAUNCHES, RMSNORM_TWO_PASS_LAUNCHES, \
+        RMSNORM_BWD_LAUNCHES, SWIGLU_BWD_LAUNCHES
     with _COUNTS_LOCK:
         ASSIGN_LAUNCHES = PAIRWISE_ARGMIN_LAUNCHES = 0
         TOPK_LAUNCHES = TOPK_MP_LAUNCHES = 0
         FLASH_LAUNCHES = RMSNORM_LAUNCHES = SWIGLU_LAUNCHES = 0
         RMSNORM_ONE_READ_LAUNCHES = RMSNORM_TWO_PASS_LAUNCHES = 0
+        RMSNORM_BWD_LAUNCHES = SWIGLU_BWD_LAUNCHES = 0
 
 
 def _use_kernel(x: torch.Tensor, backend: str) -> bool:
@@ -245,30 +263,105 @@ def flash_attention(q, k, v, causal: bool = True, scale: float | None = None,
     return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
 
 
+def _records(*tensors) -> bool:
+    """Autograd would record an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _rmsnorm_fwd(x, weight, eps, use_kernel: bool):
+    global RMSNORM_LAUNCHES, RMSNORM_ONE_READ_LAUNCHES, \
+        RMSNORM_TWO_PASS_LAUNCHES
+    if not use_kernel:
+        return _ref.rmsnorm_ref(x, weight, eps=eps)
+    out, packs = _rmsnorm_launch(x, weight, eps=eps)
+    with _COUNTS_LOCK:
+        RMSNORM_LAUNCHES += 1
+        if packs:
+            RMSNORM_ONE_READ_LAUNCHES += 1
+        else:
+            RMSNORM_TWO_PASS_LAUNCHES += 1
+    return out
+
+
+class _RMSNormFn(torch.autograd.Function):
+    """rmsnorm with a backward: the forward kernel (or, for a CPU tensor,
+    the plain version), then the backward kernel (the plain backward for a
+    CPU tensor).  Saves x and w; the backward recomputes r from x."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps, use_kernel):
+        ctx.save_for_backward(x, weight)
+        ctx.eps, ctx.use_kernel = eps, use_kernel
+        return _rmsnorm_fwd(x, weight, eps, use_kernel)
+
+    @staticmethod
+    def backward(ctx, dy):
+        global RMSNORM_BWD_LAUNCHES
+        x, weight = ctx.saved_tensors
+        dy = dy.contiguous()
+        if not ctx.use_kernel:
+            dx, dw = _ref.rmsnorm_bwd_ref(x, weight, dy, ctx.eps)
+        else:
+            dx, dw = _rmsnorm_bwd(x, weight, dy, ctx.eps)
+            with _COUNTS_LOCK:
+                RMSNORM_BWD_LAUNCHES += 1
+        return dx, dw, None, None
+
+
 def rmsnorm(x, weight, eps: float = 1e-6, backend: str = "auto"):
     """(x * rsqrt(mean(x^2) + eps)) * weight over the last dim, f32 math,
     in x's dtype.  A launch is counted in RMSNORM_LAUNCHES and in the count
-    of the kernel the launch reports it ran (one read or two passes)."""
-    global RMSNORM_LAUNCHES, RMSNORM_ONE_READ_LAUNCHES, \
-        RMSNORM_TWO_PASS_LAUNCHES
-    if _use_kernel(x, backend):
-        out, packs = _rmsnorm_launch(x, weight, eps=eps)
-        with _COUNTS_LOCK:
-            RMSNORM_LAUNCHES += 1
-            if packs:
-                RMSNORM_ONE_READ_LAUNCHES += 1
-            else:
-                RMSNORM_TWO_PASS_LAUNCHES += 1
-        return out
-    return _ref.rmsnorm_ref(x, weight, eps=eps)
+    of the kernel the launch reports it ran (one read or two passes).
+    Where autograd records the call (and backend is not "plain", whose
+    ops autograd differentiates as they are), it goes through `_RMSNormFn`,
+    whose backward launches are counted in RMSNORM_BWD_LAUNCHES."""
+    use_kernel = _use_kernel(x, backend)
+    if backend != "plain" and _records(x, weight):
+        return _RMSNormFn.apply(x, weight, eps, use_kernel)
+    return _rmsnorm_fwd(x, weight, eps, use_kernel)
+
+
+def _swiglu_fwd(gate, up, use_kernel: bool):
+    global SWIGLU_LAUNCHES
+    if not use_kernel:
+        return _ref.swiglu_ref(gate, up)
+    out = _swiglu(gate, up)
+    with _COUNTS_LOCK:
+        SWIGLU_LAUNCHES += 1
+    return out
+
+
+class _SwiGLUFn(torch.autograd.Function):
+    """swiglu with a backward: the forward kernel (or, for a CPU tensor, the
+    plain version), then the backward kernel (the plain backward for a CPU
+    tensor).  Saves gate and up."""
+
+    @staticmethod
+    def forward(ctx, gate, up, use_kernel):
+        ctx.save_for_backward(gate, up)
+        ctx.use_kernel = use_kernel
+        return _swiglu_fwd(gate, up, use_kernel)
+
+    @staticmethod
+    def backward(ctx, dy):
+        global SWIGLU_BWD_LAUNCHES
+        gate, up = ctx.saved_tensors
+        dy = dy.contiguous()
+        if not ctx.use_kernel:
+            dgate, dup = _ref.swiglu_bwd_ref(gate, up, dy)
+        else:
+            dgate, dup = _swiglu_bwd(gate, up, dy)
+            with _COUNTS_LOCK:
+                SWIGLU_BWD_LAUNCHES += 1
+        return dgate, dup, None
 
 
 def swiglu(gate, up, backend: str = "auto"):
-    """silu(gate) * up elementwise, f32 math, in gate's dtype."""
-    global SWIGLU_LAUNCHES
-    if _use_kernel(gate, backend):
-        out = _swiglu(gate, up)
-        with _COUNTS_LOCK:
-            SWIGLU_LAUNCHES += 1
-        return out
-    return _ref.swiglu_ref(gate, up)
+    """silu(gate) * up elementwise, f32 math, in gate's dtype.  Where
+    autograd records the call (and backend is not "plain"), it goes through
+    `_SwiGLUFn`, whose backward launches are counted in
+    SWIGLU_BWD_LAUNCHES."""
+    use_kernel = _use_kernel(gate, backend)
+    if backend != "plain" and _records(gate, up):
+        return _SwiGLUFn.apply(gate, up, use_kernel)
+    return _swiglu_fwd(gate, up, use_kernel)

@@ -10,7 +10,7 @@ import torch
 
 __all__ = ["assign_ref", "pairwise_argmin_ref", "topk_ref", "topk_merge_ref",
            "topk_multiprobe_ref", "TOPK_SENTINEL", "flash_attention_ref",
-           "rmsnorm_ref", "swiglu_ref"]
+           "rmsnorm_ref", "swiglu_ref", "rmsnorm_bwd_ref", "swiglu_bwd_ref"]
 
 # Invalid-candidate id inside the top-k selection: larger than any real
 # center index, so the lexicographic (d2, id) order puts exhausted slots
@@ -161,16 +161,55 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """t in the plain versions' math type: f32, or f64 for f64 inputs (so
+    that gradcheck can hold the autograd Functions in f64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def rmsnorm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
     """(xf * rsqrt(mean(xf^2) + eps)) * w over the last dim, f32 math, cast
     back to x's dtype."""
-    xf = x.to(torch.float32)
+    xf = _f32(x)
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return ((xf * torch.rsqrt(ms + eps))
-            * weight.to(torch.float32)).to(x.dtype)
+    return ((xf * torch.rsqrt(ms + eps)) * _f32(weight)).to(x.dtype)
 
 
 def swiglu_ref(gate: torch.Tensor, up: torch.Tensor):
     """silu(gate) * up, f32 math, cast back to gate's dtype."""
-    gf = gate.to(torch.float32)
-    return (torch.nn.functional.silu(gf) * up.to(torch.float32)).to(gate.dtype)
+    gf = _f32(gate)
+    return (torch.nn.functional.silu(gf) * _f32(up)).to(gate.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6):
+    """The gradients of `rmsnorm_ref` for the output gradient dy, written
+    out (not autograd), in f32 math.  With r = rsqrt(mean(x^2) + eps):
+
+      dx = r (w dy) - x r^3 sum(w dy x) / d      (cast to x's dtype)
+      dw = sum over rows of dy (x r)             (cast to w's dtype)
+
+    x and dy (..., d), w (d,)."""
+    d = x.shape[-1]
+    xf, wf, gf = _f32(x), _f32(weight), _f32(dy)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    gw = gf * wf
+    dot = torch.sum(gw * xf, dim=-1, keepdim=True)
+    dx = gw * r - xf * ((r * r * r) * (dot / d))
+    dw = torch.sum((gf * (xf * r)).reshape(-1, d), dim=0)
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+def swiglu_bwd_ref(gate: torch.Tensor, up: torch.Tensor, dy: torch.Tensor):
+    """The gradients of `swiglu_ref` for the output gradient dy, written out
+    (not autograd), in f32 math.  With s = sigmoid(g):
+
+      dup   = dy (g s)
+      dgate = dy up (s (1 + g (1 - s)))
+
+    cast to gate's and up's dtypes."""
+    gf, uf, df = _f32(gate), _f32(up), _f32(dy)
+    s = torch.sigmoid(gf)
+    dup = df * (gf * s)
+    dgate = (df * uf) * (s * (1.0 + gf * (1.0 - s)))
+    return dgate.to(gate.dtype), dup.to(up.dtype)

@@ -2,8 +2,10 @@
 
 The port of the Pallas TPU kernel `repro/kernels/rmsnorm.py`:
 `(x * rsqrt(mean(x^2) + eps)) * w` over the last dim, f32 math, output in
-x's dtype.  The source file says what bounds the kernels on an H100 and
-what their designs do about it.
+x's dtype, and its backward (`rmsnorm_bwd`: dx and dw from x, w and the
+output gradient, the kernel `ops.rmsnorm`'s autograd Function launches).
+The source file says what bounds the kernels on an H100 and what their
+designs do about it.
 
 The row width chooses the kernel, an explicit choice made in
 `one_read_packs`: the dense configurations' d_model (`ONE_READ_WIDTHS`) on
@@ -29,7 +31,8 @@ from repro_torch.kernels._checks import (
 )
 
 __all__ = ["rmsnorm", "rmsnorm_launch", "one_read_packs",
-           "ONE_READ_WIDTHS", "DTYPES"]
+           "ONE_READ_WIDTHS", "DTYPES", "rmsnorm_bwd", "bwd_warps",
+           "bwd_blocks", "BWD_MAX_BLOCKS", "BWD_SMEM_BYTES", "BWD_ROW_ALIGN"]
 
 # The widths the one-read kernel is compiled for: the configurations'
 # d_model, 2048 (granite-3-2b, internvl2-2b, olmoe-1b-7b, xlstm-1.3b), 2560
@@ -43,8 +46,27 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
+_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+# The backward's grid: at most this many blocks, each owning a fixed range
+# of rows (a constant, not the card's SM count, so the dw partials and their
+# order are the same on every card): about four blocks an SM on the H100.
+BWD_MAX_BLOCKS = 512
+# Shared memory a block of the backward may take (the H100's 227 KB): one
+# f32 row per warp, of width d rounded up to BWD_ROW_ALIGN (32 packs of 16
+# bytes in the narrowest type).
+BWD_SMEM_BYTES = 232_448
+BWD_ROW_ALIGN = 256
+
+
 def _fn():
     return _build.function("rmsnorm", "rmsnorm_fwd", _ARGTYPES)
+
+
+def _bwd_fn():
+    return _build.function("rmsnorm", "rmsnorm_bwd", _BWD_ARGTYPES)
 
 
 def one_read_packs(d: int, element_size: int, aligned: bool) -> int:
@@ -55,6 +77,24 @@ def one_read_packs(d: int, element_size: int, aligned: bool) -> int:
     if not aligned or d not in ONE_READ_WIDTHS:
         return 0
     return d * element_size // (16 * 32)
+
+
+def bwd_warps(d: int) -> int:
+    """Warps a block of the backward kernel: 4, or as many f32 rows of width
+    d (rounded up to BWD_ROW_ALIGN) as the block's shared memory holds.
+    Raises ValueError for a row too wide for one (d > 58,112)."""
+    warps = min(4, BWD_SMEM_BYTES // (4 * (-(-d // BWD_ROW_ALIGN)
+                                           * BWD_ROW_ALIGN)))
+    if warps < 1:
+        raise ValueError(f"rmsnorm backward takes rows up to "
+                         f"{BWD_SMEM_BYTES // 4} wide, got {d}")
+    return warps
+
+
+def bwd_blocks(rows: int, warps: int) -> int:
+    """Blocks of the backward kernel for `rows` rows: one a warp's row up to
+    BWD_MAX_BLOCKS; each owns ceil(rows / blocks) consecutive rows."""
+    return max(1, min(BWD_MAX_BLOCKS, -(-rows // warps)))
 
 
 def _launch(x, weight, eps, packs, out) -> None:
@@ -111,3 +151,36 @@ def _two_pass(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
     out = _checked(x, weight)
     _launch(x, weight, eps, 0, out)
     return out
+
+
+def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel: (dx, dw) for the output gradient `dy`,
+    dx shaped and typed like x, dw like weight; deterministic (no float
+    atomics).  x and dy (..., D) contiguous of one shape, weight (D,), one
+    dtype (float32, bfloat16 or float16), one CUDA device.  Raises on any
+    other input, on a tensor that needs a gradient (`ops.rmsnorm`'s
+    autograd Function calls this from its backward, where none does), and
+    when the launch fails."""
+    dx = _checked(x, weight)
+    require_cuda("dy", dy, x.device, x.dtype, dtypes=DTYPES)
+    require_no_grad(dy=dy)
+    if dy.shape != x.shape or not dy.is_contiguous():
+        raise ValueError(f"dy must be contiguous and shaped like x "
+                         f"{tuple(x.shape)}, got {tuple(dy.shape)}")
+    d = x.shape[-1]
+    rows = x.numel() // d
+    dw = torch.empty_like(weight)
+    if rows == 0:
+        return dx, dw.zero_()
+    warps = bwd_warps(d)
+    blocks = bwd_blocks(rows, warps)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    vec = d % (16 // x.element_size()) == 0 and aligned16(x, weight, dy, dx)
+    err = _bwd_fn()(x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
+                    dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
+                    DTYPE_CODES[x.dtype], rows, d, float(eps), int(vec),
+                    warps, blocks, stream_of(x))
+    if err != 0:
+        raise RuntimeError(f"rmsnorm backward launch failed: CUDA error {err}")
+    return dx, dw

@@ -1,0 +1,112 @@
+"""End-to-end training launcher of the port's language model.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
+      --reduced --steps 50 --batch 8 --seq 128 --ckpt-dir <dir> --device cpu
+
+The port of `repro/launch/train.py`: config registry -> model -> train
+step -> token pipeline -> checkpoint manager -> watchdog, with the same
+flags and printed lines.  The device is the card unless `--device cpu` is
+passed; on the CPU the model runs in float32, as the JAX launcher does on
+its CPU backend.  A checkpoint holds the training state in the JAX
+package's layout (`convert.train_state_to_numpy`), so either package's
+launcher resumes the other's.  Meshes wait for the multi-card slice:
+`--mesh` other than "none" raises.  Returns the final loss.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import TrainConfig, get_arch, reduced
+from repro_torch.convert import train_state_from_numpy, train_state_to_numpy
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.distributed.fault import StepWatchdog
+from repro_torch.models import build_model
+from repro_torch.training.step import make_train_step, train_state_init
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--mesh", choices=["none", "single", "multi"], default="none")
+    ap.add_argument("--dtype", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.mesh != "none":
+        raise NotImplementedError("meshes wait for the multi-card slice "
+                                  "(ROADMAP.md queue 1, item 7)")
+    dev = resolve_device(args.device)
+    arch = get_arch(args.arch)
+    if args.reduced:
+        arch = reduced(arch)
+    if args.dtype:
+        arch = arch.replace(dtype=args.dtype)
+    elif dev.type == "cpu":
+        arch = arch.replace(dtype="float32")
+
+    tcfg = TrainConfig(learning_rate=args.lr, warmup_steps=max(2, args.steps // 10),
+                       total_steps=args.steps, microbatches=args.microbatches,
+                       seed=args.seed)
+    model = build_model(arch, device=dev)
+    pipe = TokenPipeline(arch.vocab, args.batch, args.seq, seed=args.seed)
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    watchdog = StepWatchdog()
+
+    model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    state = train_state_init(
+        {n: p.detach() for n, p in model.named_parameters()}, tcfg)
+    start_step = 0
+    if ckpt and args.resume and ckpt.latest_step() is not None:
+        start_step, tree = ckpt.restore(train_state_to_numpy(state),
+                                        device="cpu")
+        state = train_state_from_numpy(tree, arch, device=dev)
+        print(f"resumed from step {start_step}")
+    step_fn = make_train_step(model, tcfg)
+
+    n_params = model.param_count()
+    print(f"arch={arch.name} params={n_params:,} steps={args.steps} "
+          f"batch={args.batch} seq={args.seq}")
+    t_start = time.time()
+    loss = float("nan")
+    for step in range(start_step, args.steps):
+        batch = pipe.batch_at(step)
+        t0 = time.time()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        dt = time.time() - t0
+        ev = watchdog.observe(step, dt)
+        if ev:
+            print(f"[straggler] step {step}: {dt:.2f}s vs ewma {ev.ewma:.2f}s")
+        if step % args.log_every == 0 or step == args.steps - 1:
+            toks = args.batch * args.seq
+            print(f"step {step:5d} loss {loss:8.4f} "
+                  f"gnorm {float(metrics['grad_norm']):7.3f} "
+                  f"lr {float(metrics['lr']):.2e} {dt:6.2f}s "
+                  f"({toks / max(dt, 1e-9):,.0f} tok/s)")
+        if ckpt and (step + 1) % args.ckpt_every == 0:
+            ckpt.save(step + 1, train_state_to_numpy(state))
+    if ckpt:
+        ckpt.save(args.steps, train_state_to_numpy(state))
+        ckpt.wait()
+    print(f"done in {time.time() - t_start:.1f}s; final loss {loss:.4f}")
+    return loss
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,5 @@
-"""GQA attention of the language model: prefill (chunked, or the flash
-kernel) and one-token decode over a slot KV cache.
+"""GQA attention of the language model: training and prefill (chunked, or
+the flash kernel) and one-token decode over a slot KV cache.
 
 The port of `repro/models/attention.py` for one card.  `attention_train`
 routes to `ops.flash_attention` when `cfg.attn_impl == "flash"` and the
@@ -9,6 +9,10 @@ package does off the TPU.  Decode attention stays plain torch, as it is
 plain jnp in the JAX package.  Decode mode "cp" (context-parallel) needs a
 mesh; without one it runs as "tp", as in the JAX package.  Meshes wait for
 the multi-card slice and cross-attention for the encoder-decoder slice.
+Training runs the chunked attention, as the JAX package does (its flash
+kernel has no VJP, nor has the port's: `ops.flash_attention` refuses a
+tensor that needs a gradient); unless `cfg.remat` is "none", the backward
+recomputes each query chunk's logits.
 
 Unlike the JAX package, `attention_decode` writes the new key and value
 into the cache tensors in place (and returns the same dict).
@@ -16,6 +20,7 @@ into the cache tensors in place (and returns the same dict).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import apply_rope, dense_init, rope_freqs
@@ -74,27 +79,40 @@ def _gqa_out(w, v):
     return out.reshape(b, c, hkv * g, -1)
 
 
+def _chunk_attention(qc, k, v, q0: int, scale: float):
+    """One query chunk qc (B, c, H, hd) starting at position q0 against
+    every key: masked softmax, (B, c, H, hd) f32."""
+    c = qc.shape[1]
+    logits = _gqa_logits(qc, k, scale)
+    k_pos = torch.arange(k.shape[1], device=qc.device)
+    q_pos = q0 + torch.arange(c, device=qc.device)
+    mask = k_pos[None, :] <= q_pos[:, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    return _gqa_out(torch.softmax(logits, dim=-1), v)
+
+
 def _chunked_causal_attention(q, k, v, cfg, q_offset: int = 0):
     """Memory-bounded causal attention, one query chunk at a time: peak
-    logits are (B, Hkv, g, chunk, S) f32 instead of (.., S, S)."""
+    logits are (B, Hkv, g, chunk, S) f32 instead of (.., S, S).  Where
+    autograd records and cfg.remat is not "none", each chunk is
+    checkpointed: its backward recomputes its logits instead of keeping
+    (chunk, S) softmax weights for every chunk (flash-style)."""
     b, s, h, hd = q.shape
     scale = hd ** -0.5
     c = min(cfg.attn_chunk, s)
     if s % c:
         c = s
-    k_pos = torch.arange(k.shape[1], device=q.device)
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
     outs = []
     for i in range(s // c):
-        logits = _gqa_logits(q[:, i * c:(i + 1) * c], k, scale)
-        q_pos = q_offset + i * c + torch.arange(c, device=q.device)
-        mask = k_pos[None, :] <= q_pos[:, None]
-        logits = torch.where(mask, logits, NEG_INF)
-        outs.append(_gqa_out(torch.softmax(logits, dim=-1), v))
+        args = (q[:, i * c:(i + 1) * c], k, v, q_offset + i * c, scale)
+        outs.append(checkpoint(_chunk_attention, *args, use_reentrant=False)
+                    if remat else _chunk_attention(*args))
     return torch.cat(outs, 1).to(q.dtype)
 
 
 def attention_train(p, x, cfg, positions, backend: str = "auto"):
-    """Full-sequence causal self-attention (prefill).
+    """Full-sequence causal self-attention (training and prefill).
 
     Returns (out (B,S,D), (k, v)), the (B,S,Hkv,hd) prefill cache
     contribution.

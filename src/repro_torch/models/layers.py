@@ -1,21 +1,23 @@
 """Shared neural-net layers of the language model (plain functions on
 tensors; parameters are dicts of tensors, keyed as in the JAX package).
 
-The port of `repro/models/layers.py` for the forward (serving) path.
-`rmsnorm` and `mlp_apply` go through `kernels.ops`, so a CUDA tensor runs
-the hand-written kernels: the fused kernels are the JAX package's
-"inference-path option", which its training path leaves out because
-Pallas has no VJP.  `backend` is `ops`' dispatch ("auto", "cuda" or
-"plain").  `cross_entropy_chunked` waits for the training slice.
+The port of `repro/models/layers.py`.  `rmsnorm` and `mlp_apply` go
+through `kernels.ops`, so a CUDA tensor runs the hand-written kernels on
+every path: serving calls the forward kernels, training reaches them and
+their backward kernels through `ops`' autograd Functions.  (The JAX
+package's training path runs its plain versions, because Pallas has no
+VJP.)  `backend` is `ops`' dispatch ("auto", "cuda" or "plain").
+`cross_entropy_chunked` is the training loss.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
 __all__ = ["dense_init", "embed_init", "rmsnorm", "rope_freqs", "apply_rope",
-           "mlp_init", "mlp_apply"]
+           "mlp_init", "mlp_apply", "cross_entropy_chunked"]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -76,3 +78,39 @@ def mlp_apply(p, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     g = x @ p["wg"]
     u = x @ p["wu"]
     return ops.swiglu(g, u, backend=backend) @ p["wd"]
+
+
+# ---------------------------------------------------------------------------
+# Sequence-chunked cross entropy: never materializes (B, S, V) logits.
+# ---------------------------------------------------------------------------
+
+def _chunk_ce(hx: torch.Tensor, lm_head: torch.Tensor, lx: torch.Tensor
+              ) -> torch.Tensor:
+    """sum(logsumexp - gold logit) over one chunk, f32 logits."""
+    logits = hx.to(torch.float32) @ lm_head.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lx[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def cross_entropy_chunked(h: torch.Tensor, lm_head: torch.Tensor,
+                          labels: torch.Tensor, seq_chunk: int = 512
+                          ) -> torch.Tensor:
+    """Mean next-token CE.  h (B, S, D), lm_head (D, V), labels (B, S)
+    int64.  One sequence chunk of `seq_chunk` at a time (one chunk when S is
+    not a multiple of it), so peak logits memory is (B, chunk, V) f32; the
+    backward recomputes each chunk's logits (`torch.utils.checkpoint`).
+    Returns a 0-d f32 tensor: the chunks' sums, in order, over B * S.
+    f32 matmuls stay IEEE (the caller keeps TF32 off)."""
+    b, s, _ = h.shape
+    c = min(seq_chunk, s)
+    if s % c:
+        c = s
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    record = torch.is_grad_enabled()
+    for i in range(s // c):
+        hx, lx = h[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        total = total + (checkpoint(_chunk_ce, hx, lm_head, lx,
+                                    use_reentrant=False) if record
+                         else _chunk_ce(hx, lm_head, lx))
+    return total / (b * s)

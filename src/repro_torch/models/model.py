@@ -1,6 +1,7 @@
-"""The language model: init, prefill and one-token decode on one device.
+"""The language model: init, loss, prefill and one-token decode on one
+device.
 
-The port of `repro/models/model.py` for the forward (serving) path.
+The port of `repro/models/model.py`.
 `Model` is an `nn.Module` holding its parameters under the JAX package's
 names:
 
@@ -10,11 +11,14 @@ names:
 
 Caches mirror the segments: {"seg_00": [{"k", "v"} per layer]}, each
 (B, S, Hkv, hd); `convert.lm_caches_to_numpy` gives them in the JAX
-layout.  `decode_step` writes the caches in place.  `prefill` and
-`decode_step` run under `torch.inference_mode()`: this slice serves and
-does not train (the loss waits for the training slice).  `backend` is
-the kernels' dispatch ("auto": a CUDA tensor launches the kernels;
-"plain": the plain versions, for comparisons).
+layout.  `decode_step` writes the caches in place.  The parameters are
+trainable: `loss(batch)` (also `forward`, so `torch.func.functional_call`
+can run it on a training state's tensors) is the mean next-token loss
+that `training/step.py` differentiates, each block rematerialized as
+`cfg.remat` says.  `prefill` and `decode_step` run under
+`torch.inference_mode()`.  `backend` is the kernels' dispatch ("auto": a
+CUDA tensor launches the kernels, forward and backward; "plain": the plain
+versions, which autograd differentiates as they are, for comparisons).
 """
 from __future__ import annotations
 
@@ -25,17 +29,29 @@ import torch
 from torch import nn
 
 from repro_torch._device import resolve_device
-from repro_torch.models.layers import embed_init, rmsnorm
+from repro_torch.models.layers import (
+    cross_entropy_chunked, embed_init, rmsnorm,
+)
 from repro_torch.models.transformer import (
     block_shapes, init_block, init_block_cache, require_ported,
     run_stack_decode, run_stack_train, segments_for,
 )
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "layer_of"]
 
 
 def _seg_key(i: int) -> str:
     return f"seg_{i:02d}"
+
+
+def layer_of(name: str) -> tuple[str, int, str] | None:
+    """(segment key, layer, leaf) of a block tensor's parameter name
+    ("segments.seg_00.3.wq" -> ("seg_00", 3, "wq")); None for the others
+    ("tok_embed", "final_norm", "lm_head")."""
+    parts = name.split(".")
+    if parts[0] == "segments" and len(parts) == 4:
+        return parts[1], int(parts[2]), parts[3]
+    return None
 
 
 class Model(nn.Module):
@@ -66,8 +82,7 @@ class Model(nn.Module):
         dt = getattr(torch, cfg.dtype)
 
         def empty(*shape):
-            return nn.Parameter(torch.empty(shape, dtype=dt, device=dev),
-                                requires_grad=False)
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=dev))
         self.tok_embed = empty(cfg.vocab, cfg.d_model)
         self.final_norm = empty(cfg.d_model)
         self.lm_head = None if cfg.tie_embeddings else empty(cfg.d_model,
@@ -147,6 +162,26 @@ class Model(nn.Module):
 
     def _positions(self, s: int) -> torch.Tensor:
         return torch.arange(s, dtype=torch.float32, device=self.device)
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, batch: dict) -> torch.Tensor:
+        """batch["tokens"], batch["labels"] (B, S) ints (numpy or tensors)
+        -> the mean next-token cross entropy, a 0-d f32 tensor: embed, the
+        blocks (rematerialized as cfg.remat says), the final norm, and
+        `cross_entropy_chunked` in chunks of cfg.attn_chunk."""
+        cfg = self.cfg
+        x, n_prefix = self._embed(batch)
+        x, _ = self._body_train(x, self._positions(x.shape[1]))
+        h = rmsnorm(x, self.final_norm, cfg.norm_eps, self.backend)
+        if n_prefix:
+            h = h[:, n_prefix:]
+        return cross_entropy_chunked(h, self._lm_head(),
+                                     self._ids(batch["labels"]),
+                                     seq_chunk=cfg.attn_chunk)
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        """The training forward: `loss(batch)`."""
+        return self.loss(batch)
 
     # --------------------------------------------------------------- prefill
     @torch.inference_mode()

@@ -6,10 +6,24 @@ is a list of per-layer parameter dicts run in a Python loop, where the JAX
 package stacks them and scans.  This slice runs the `attn_mlp` kind (dense
 and vision-language families); the other kinds raise NotImplementedError
 naming the ROADMAP.md item that ports them.
+
+Where autograd records, `run_stack_train` rematerializes each block as
+`cfg.remat` says (the counterpart of the JAX package's `_remat_wrap`):
+"full" checkpoints the block (its backward reruns the forward from the
+block's input), "dots" checkpoints it selectively, keeping the outputs of
+its matrix products (`aten.mm`, the projections; the attention's batched
+products are recomputed, as `dots_with_no_batch_dims_saveable` does), and
+"none" keeps every activation.  Remat changes no bit of the loss or the
+gradients.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import mlp_apply, mlp_init, rmsnorm
@@ -132,13 +146,38 @@ def block_decode(p, x, cfg, kind: str, cache, pos, decode_mode: str = "tp",
     return x, cache
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the matrix products without batch dims."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg):
+    """fn as `cfg.remat` rematerializes it where autograd records."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def run_stack_train(layers, x, cfg, kind: str, positions,
                     want_cache: bool = False, backend: str = "auto"):
-    """Run the blocks of one segment in order; -> (x, [per-layer cache]
-    or None)."""
+    """Run the blocks of one segment in order, each rematerialized as
+    `cfg.remat` says; -> (x, [per-layer cache] or None)."""
+    block = _remat_wrap(block_train, cfg)
     caches = []
     for p in layers:
-        x, cache = block_train(p, x, cfg, kind, positions, backend)
+        # the layer's tensors as they are now (a recompute in the backward
+        # must see the ones the forward saw: under torch.func.functional_call
+        # the module's own attributes are restored by then)
+        p = {name: p[name] for name in p.keys()}
+        x, cache = block(p, x, cfg, kind, positions, backend)
         if want_cache:
             caches.append(cache)
     return x, (caches if want_cache else None)

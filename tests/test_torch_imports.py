@@ -7,7 +7,9 @@ BP-means), publishes it and serves one top-k query from it, replicates it
 over a loopback `DeltaChannel`, recovers it from a `DeltaWAL`, then builds
 `reduced(qwen3-4b)` on the CPU, serves two requests through the
 language model's `ServeEngine`, curates the embeddings of two token
-batches, and imports the train-while-serve launcher and every example.
+batches, takes one train step of that model (the optimizer and the train
+step), and imports the train-while-serve and training launchers and every
+example.
 """
 import ast
 import os
@@ -100,10 +102,17 @@ emb = embed_sequences(lm, [TokenPipeline(cfg.vocab, 4, 8).batch_at(s)
                            for s in range(2)])
 rep = curate(emb, lam=1.0, pb=4, k_max=8)
 assert emb.shape == (8, cfg.d_model) and rep.n_points == 8
-from repro_torch.launch import serve_clusters
+from repro_torch.configs import TrainConfig
+from repro_torch.training import make_train_step, train_state_init
+tc = TrainConfig(warmup_steps=1, total_steps=2)
+st = train_state_init({n: p.detach() for n, p in lm.named_parameters()}, tc)
+st, met = make_train_step(lm, tc)(st, TokenPipeline(cfg.vocab, 2, 8).batch_at(0))
+assert int(met["step"]) == 1 and bool(torch.isfinite(met["loss"]))
+import repro_torch.optim
+from repro_torch.launch import serve_clusters, train
 from repro_torch.examples import (
     crash_recovery, data_curation, observability, quickstart,
-    retrieval_index, serve_lm, streaming_clusters)
+    retrieval_index, serve_lm, streaming_clusters, train_lm)
 assert serve_clusters.ServeDemoConfig().device == "cuda"
 assert not _build._LIBS   # the CPU path never builds or loads a kernel
 print("OK", int(res.pool.count))
