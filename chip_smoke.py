@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,serve_clusters,curation,examples]
+  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,moe,serve_clusters,curation,examples]
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
@@ -18,8 +18,13 @@ its crash-recoverable variant (a master killed and a follower promoted,
 the promoted master's WAL recovered) on the card against the fused
 single-process pass, serves the language model qwen3-4b (prefill and
 the slot engine's decode) at full width and depth, and trains granite-3-2b
-at full width and depth (six AdamW steps of 4 x 4096 tokens through the
-rmsnorm and swiglu kernels' forward and backward).  Then the system's
+at full width and depth (four AdamW steps of 4 x 4096 tokens through the
+rmsnorm and swiglu kernels' forward and backward), and runs the
+Mixture-of-Experts model olmoe-1b-7b: its router and five dispatch impls
+at full width, served at full width and depth (a 4 x 4096 prefill and
+the slot engine's decode, the swiglu kernel on every layer's
+expert-grouped tensor) and trained at full width and 8 of its 16 layers,
+and phi3.5-moe at full width and 2 layers.  Then the system's
 remaining entry points: the train-while-serve pipeline (two tenants'
 trainer threads, sixteen client threads behind a coalescing router, a QoS
 A/B of priority lanes against FIFO, every response audited), OCC data
@@ -38,6 +43,7 @@ without the repository's `src/`, it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -49,7 +55,7 @@ import time
 
 ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper", "ofl",
               "bp_means", "fig3", "retrieval", "serve", "invariants",
-              "cluster", "ha", "lm_serve", "train", "serve_clusters",
+              "cluster", "ha", "lm_serve", "train", "moe", "serve_clusters",
               "curation", "examples")
 KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream",
            "flash_attention", "rmsnorm", "swiglu", "rmsnorm_bwd", "swiglu_bwd")
@@ -112,9 +118,9 @@ LOGIT_TOL = 1e-4
 # logits by their own scale.
 BF16_LOGIT_TOL = 0.05
 # The full-depth engine run: 8 requests of prompt 64 on 4 slots, each to
-# this many new tokens, so that the decode-tick percentiles rest on 512
-# ticks.
-SERVE_MAX_NEW = 256
+# this many new tokens, so that the decode-tick percentiles rest on 256
+# ticks (cut from 256 new tokens, 512 ticks, when the moe phase came in).
+SERVE_MAX_NEW = 128
 # The train-while-serve pipeline: points streamed per tenant (the paper's
 # Pb = 2048, 32 epochs each) and the QoS A/B tenant's stream.
 SC_N = 2**16
@@ -128,12 +134,13 @@ CUR_SEQ = 256
 CUR_PB = 256
 CUR_K_MAX = 512
 # Training granite-3-2b at full width and depth: SHAPES["train_4k"]'s
-# sequence, its global batch of 256 cut to 4 for one card; six steps, the
-# first three held against a run on the plain versions from the same state.
+# sequence, its global batch of 256 cut to 4 for one card; four steps, the
+# first two held against a run on the plain versions from the same state
+# (cut from six and three when the moe phase came in).
 TRAIN_BATCH = 4
 TRAIN_SEQ = 4096
-TRAIN_STEPS = 6
-TRAIN_PLAIN_STEPS = 3
+TRAIN_STEPS = 4
+TRAIN_PLAIN_STEPS = 2
 # bf16 at 40 layers: loss and grad norm of the kernels' run against the
 # plain versions' within these fractions.  The two runs round the
 # activations and the gradients to bf16 at other points (the kernels round
@@ -147,6 +154,50 @@ TRAIN_GNORM_TOL = 0.02
 # against its own max abs.
 TRAIN_F32_LOSS_RTOL = 1e-5
 TRAIN_F32_GRAD_TOL = 1e-4
+# The moe phase: olmoe-1b-7b (16 layers, d 2048, 16/16 heads of 128, 64
+# experts top-8, d_ff 1024, vocab 50304).  Its full-width f32 check runs
+# MOE_F32_LAYERS layers on a 1 x MOE_F32_SEQ prefill; the five impls are
+# held to `dense` at capacity factor MOE_ORACLE_CF (no drops: C = S) within
+# MOE_IMPL_TOL * max(1, max |dense|), the bar of the JAX package's own
+# test of its impls (`tests/test_models_smoke.py`: 1e-4), since they sum
+# the same products in other orders and routes; routing decisions that
+# differ between the kernels' and the plain route must lie within
+# MOE_TIE_MARGIN of a tie in the plain route's probabilities.
+MOE_F32_LAYERS = 2
+MOE_F32_SEQ = 512
+MOE_ORACLE_CF = 8.0
+MOE_IMPL_TOL = 1e-4
+MOE_TIE_MARGIN = 1e-6
+# Full depth, bf16: a MOE_PREFILL_BATCH x TRAIN_SEQ (4 x 4096) prefill,
+# then 4 requests of prompt 64 and MOE_SERVE_MAX_NEW new tokens on 4
+# slots.  Last-token logits of two routes
+# (kernels against plain versions; decode_step after a prefill against one
+# longer prefill) agree within this fraction of max |logit|: the bf16
+# roundings of BF16_LOGIT_TOL's reasoning over 16 layers (qwen3-4b's bar of
+# 0.05 covers 36), plus the routing: a token whose k-th and (k+1)-th
+# experts lie within bf16 noise of each other takes another expert in the
+# other route, which moves that token's FFN output by up to its gate weight
+# (about 1/8 of the layer's FFN output at top-8), and through attention the
+# later tokens' outputs a little.  Decode against prefill runs at capacity
+# factor MOE_ORACLE_CF: at the config's 1.25 a 65-token prefill (C 11)
+# drops tokens that decode (one token, C 1) never drops, by the
+# reference's design.
+MOE_BF16_LOGIT_TOL = 0.1
+MOE_PREFILL_BATCH = 4
+MOE_SERVE_MAX_NEW = 64
+# Training olmoe at full width and MOE_TRAIN_LAYERS of its 16 layers (its
+# 12 bytes a parameter at full depth, 83 GB, exceed the card): bf16,
+# remat "full", chunked attention, as the config sets them; MOE_TRAIN_STEPS
+# AdamW steps of MOE_TRAIN_BATCH x TRAIN_SEQ tokens, the first
+# MOE_TRAIN_PLAIN_STEPS against the plain versions.  The batch is cut from
+# 4 to 2: at 4 the predicted peak (42.8 GB of state, 29 GB saved by one
+# layer's recompute of the capacity dispatch, whose k-loop keeps eight
+# (4, 4096, 64, 640) f32 one-hots, and its backward's transients) passes
+# 75 GB.
+MOE_TRAIN_LAYERS = 8
+MOE_TRAIN_BATCH = 2
+MOE_TRAIN_STEPS = 4
+MOE_TRAIN_PLAIN_STEPS = 2
 
 
 def emit(obj) -> None:
@@ -2782,15 +2833,16 @@ class Smoke:
         emit({"phase": "lm_serve", "arch": "qwen3-4b", "card": self.card,
               **res})
 
-    def _bf16_logits_agree(self, case, got, want) -> dict:
-        """Full-depth bf16 logits of two routes agree within BF16_LOGIT_TOL
-        of max |want|."""
+    def _bf16_logits_agree(self, case, got, want,
+                           tol_frac: float = BF16_LOGIT_TOL) -> dict:
+        """Full-depth bf16 logits of two routes agree within `tol_frac` of
+        max |want|."""
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
-        tol = BF16_LOGIT_TOL * scale
+        tol = tol_frac * scale
         check(got.shape == want.shape and bool(self.torch.isfinite(got).all())
               and err <= tol,
-              f"lm_serve bf16 {case}: max abs diff {err} > {tol}")
+              f"bf16 {case}: max abs diff {err} > {tol}")
         return {"case": case, "max_abs_diff": err, "logit_scale": scale,
                 "tol": tol, "argmax_equal_rows": int(
                     (got.argmax(-1) == want.argmax(-1)).sum()),
@@ -2828,19 +2880,19 @@ class Smoke:
     def train(self):
         """granite-3-2b trained by the port at full width and depth (40
         layers, d 2048, 32/8 heads of 64, d_ff 8192, vocab 49155, tied
-        embeddings; bf16, remat "full", chunked attention): six
+        embeddings; bf16, remat "full", chunked attention): TRAIN_STEPS
         `make_train_step` steps of TRAIN_BATCH x TRAIN_SEQ tokens from
         `TokenPipeline` with exact launch counts for a step, every loss
-        finite, the first three steps' loss and grad norm against a run on
-        the plain versions from the same state, step time, tokens/s, peak
-        memory and the model-FLOP share.  Then at full width and 2 layers:
-        the loss and every gradient in f32 against the plain versions, and
-        in bf16 two three-step runs from one state bitwise equal, and a
+        finite, the first TRAIN_PLAIN_STEPS steps' loss and grad norm
+        against a run on the plain versions from the same state, step time,
+        tokens/s, peak memory and the model-FLOP share.  Then at full width
+        and 2 layers: the loss and every gradient in f32 against the plain
+        versions, and in bf16 two three-step runs from one state bitwise
+        equal, and a
         `CheckpointManager` save after step 2, restore and step 3 equal to
         the straight run bitwise.  No plain backward runs."""
         from repro_torch.configs import TrainConfig, get_arch
         from repro_torch.data.tokens import TokenPipeline
-        from repro_torch.kernels import ref
         self._ensure_built()
         cfg = get_arch("granite-3-2b")
         check(cfg.n_layers == 40 and cfg.d_model == 2048 and cfg.d_ff == 8192
@@ -2857,6 +2909,20 @@ class Smoke:
         per_step = {"rmsnorm": 4 * n + 1, "rmsnorm_one_read": 4 * n + 1,
                     "swiglu": 2 * n, "rmsnorm_bwd": 2 * n + 1,
                     "swiglu_bwd": n, "flash_attention": 0}
+        with self._no_plain_backward("train"):
+            res = self._train_full(cfg, tcfg, pipe, per_step, tokens)
+            res["f32_2_layers"] = self._train_f32(cfg, pipe)
+            res["determinism_2_layers"] = self._train_determinism(
+                cfg, tcfg, pipe)
+        emit({"phase": "train", "arch": "granite-3-2b", "card": self.card,
+              **res})
+
+    @contextlib.contextmanager
+    def _no_plain_backward(self, phase: str):
+        """Fails the phase if a plain backward version (`ref.rmsnorm_bwd_ref`,
+        `ref.swiglu_bwd_ref`) runs inside: on the card every backward is the
+        kernel's."""
+        from repro_torch.kernels import ref
         plain_bwd = []
         saved = (ref.rmsnorm_bwd_ref, ref.swiglu_bwd_ref)
 
@@ -2867,20 +2933,14 @@ class Smoke:
             return counted
         ref.rmsnorm_bwd_ref, ref.swiglu_bwd_ref = map(guard, saved)
         try:
-            res = self._train_full(cfg, tcfg, pipe, per_step, tokens)
-            res["f32_2_layers"] = self._train_f32(cfg, pipe)
-            res["determinism_2_layers"] = self._train_determinism(
-                cfg, tcfg, pipe)
+            yield
         finally:
             ref.rmsnorm_bwd_ref, ref.swiglu_bwd_ref = saved
-        check(not plain_bwd, f"train: plain backward versions ran on the "
+        check(not plain_bwd, f"{phase}: plain backward versions ran on the "
               f"card: {sorted(set(plain_bwd))}")
-        emit({"phase": "train", "arch": "granite-3-2b", "card": self.card,
-              **res})
 
     def _train_full(self, cfg, tcfg, pipe, per_step, tokens) -> dict:
         torch = self.torch
-        import contextlib
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.kernels import ops
         from repro_torch.models import build_model
@@ -2900,12 +2960,12 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         # the main path: counts from 0 just before, read just after
         ops.reset_launch_counts()
-        mets, times, first = [], [], None
+        mets, times, first, breakdown = [], [], None, None
         for s in range(TRAIN_STEPS):
-            # the last step under the profiler (device activity only): a
-            # step is device-bound, so the trace costs it little time
+            # step 2 under the profiler (device activity only), so that
+            # the p50 over steps 3 on is of unprofiled steps
             prof = profile(activities=[ProfilerActivity.CUDA]) \
-                if s == TRAIN_STEPS - 1 else contextlib.nullcontext()
+                if s == 1 else contextlib.nullcontext()
             t0 = time.perf_counter()
             with prof:
                 state, m = step(state, pipe.batch_at(s))
@@ -2914,10 +2974,11 @@ class Smoke:
             mets.append({k: float(v) for k, v in m.items()})
             if first is None:
                 first = self._train_counts()
+            if s == 1:
+                breakdown = self._step_breakdown(prof, times[-1])
         counts = self._train_counts()
         # ----------------------------------------------------------------
         peak = torch.cuda.max_memory_allocated()
-        breakdown = self._step_breakdown(prof, times[-1])
         check(first == per_step,
               f"train: launches of one step {first}, expected {per_step}")
         check(counts == {k: TRAIN_STEPS * v for k, v in per_step.items()},
@@ -2968,7 +3029,8 @@ class Smoke:
             "remat": cfg.remat, "attn_impl": cfg.attn_impl,
             "batch": b, "seq": s_, "steps": TRAIN_STEPS, "params": n_params,
             "init_s": init_s, "step_seconds": times,
-            "step_p50_s_steps_3_to_6": p50, "tokens_per_s": tokens / p50,
+            f"step_p50_s_steps_3_to_{TRAIN_STEPS}": p50,
+            "tokens_per_s": tokens / p50,
             "peak_memory_gb": peak / 1e9,
             "model_flops_per_step": model_flops,
             "attention_flops_per_step": attn,
@@ -2980,8 +3042,9 @@ class Smoke:
             "tol": {"loss": TRAIN_LOSS_TOL, "grad_norm": TRAIN_GNORM_TOL}}
 
     def _step_breakdown(self, prof, wall_s: float) -> dict:
-        """Device time of a profiled train step by kind of work: the port's
-        kernels, the matrix products (cuBLAS / CUTLASS GEMMs) and the rest
+        """Device time of a profiled train step (or prefill) by kind of
+        work: the port's kernels, the matrix products (cuBLAS / CUTLASS
+        GEMMs) and the rest
         (PyTorch's elementwise, softmax, reduction and copy kernels), the
         twelve largest kernels by name, and the device's idle share of the
         step's wall time."""
@@ -2989,7 +3052,7 @@ class Smoke:
         busy = sum(dt for _, dt, _ in events)
         if busy <= 0:
             return {"idle": "not measured (no device events)"}
-        ours = ("rmsnorm", "swiglu")
+        ours = ("rmsnorm", "swiglu", "flash")
         gemm = ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "Kernel2")
         kinds = {"port_kernels": 0.0, "matmuls": 0.0, "other": 0.0}
         for name, dt, _ in events:
@@ -3101,6 +3164,606 @@ class Smoke:
                 "checkpoint_save_restore_s": t_ckpt, "steps": 3,
                 "bitwise_repeat": True, "bitwise_resume": True,
                 "metrics": ma}
+
+    # --------------------------------------------------------------- moe
+    def _moe_counts(self):
+        """The language-model kernels' launches, rmsnorm's two kernels
+        together."""
+        counts = self._train_counts()
+        del counts["rmsnorm_one_read"]
+        return counts
+
+    def moe(self):
+        """The Mixture-of-Experts family on the card (`models/moe.py`):
+        olmoe-1b-7b (16 layers, d 2048, 64 experts top-8, d_ff 1024; the
+        capacity impl at factor 1.25, as its config sets them) at full
+        width, 2 layers, f32, with the kernels against the plain versions
+        (logits, every layer's routing and drops) and its five dispatch
+        impls against `dense`; served at full width and depth in bf16 (a
+        4 x 4096 prefill with flash attention, the slot engine's decode,
+        both with exact launch counts, and their logits against the plain
+        versions' and against decode_step); trained at full width and
+        MOE_TRAIN_LAYERS layers (MOE_TRAIN_STEPS AdamW steps held to a run
+        on the plain versions, and full-width f32 gradients); phi3.5-moe
+        (16 experts top-2, GQA 32/8, d_ff 6400) at full width and 2 layers;
+        and the swiglu and flash kernels timed at the MoE shapes.  The
+        launches of the served and trained runs (and phi3.5-moe's prefill)
+        count as the path's."""
+        from repro_torch.configs import get_arch
+        self._ensure_built()
+        base = get_arch("olmoe-1b-7b")
+        check(base.n_layers == 16 and base.d_model == 2048
+              and base.n_heads == base.n_kv_heads == 16 and base.hd == 128
+              and base.d_ff == 1024 and base.vocab == 50304
+              and base.moe.n_experts == 64 and base.moe.top_k == 8
+              and base.moe.capacity_factor == 1.25
+              and base.moe.impl == "capacity" and base.dtype == "bfloat16"
+              and base.remat == "full" and base.attn_impl == "chunked",
+              "moe: olmoe-1b-7b's configuration")
+        launches = dict.fromkeys(("flash_attention", "rmsnorm", "swiglu",
+                                  "rmsnorm_bwd", "swiglu_bwd"), 0)
+        res = {}
+        t0 = time.perf_counter()
+        res["f32_2_layers"] = self._moe_f32(base)
+        res["f32_2_layers"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["serve"] = self._moe_serve(base, launches)
+        res["serve"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with self._no_plain_backward("moe"):
+            res["train"] = self._moe_train(base, launches)
+        res["train"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["phi3_5_moe_2_layers"] = self._moe_phi(launches)
+        res["phi3_5_moe_2_layers"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self._moe_kernel_times()
+        res["kernel_times_s"] = time.perf_counter() - t0
+        res["launches"] = launches
+        self.path_launches["moe"] = launches
+        emit({"phase": "moe", "arch": "olmoe-1b-7b", "card": self.card,
+              **res})
+
+    def _routing_agree(self, case, cfg, rk, rp, s: int) -> dict:
+        """Every layer's routing of two routes through the same weights
+        (`_Routing` records, in layer order): tokens whose ordered top-k
+        ids differ, each within MOE_TIE_MARGIN of a tie in the second
+        route's probabilities where they were recorded, and the tokens
+        each route drops at the config's capacity."""
+        from repro_torch.models import moe
+        torch = self.torch
+        check(len(rk.calls) == len(rp.calls) == cfg.n_layers,
+              f"moe {case}: {len(rk.calls)} / {len(rp.calls)} router calls "
+              f"for {cfg.n_layers} layers")
+        e, k = cfg.moe.n_experts, cfg.moe.top_k
+        cap = moe.capacity(cfg, s)
+        out = {"case": case, "capacity": cap, "flips": [], "drops": [],
+               "plain_drops": [], "flip_margin_max": 0.0,
+               "nearest_tie": None}
+        for a, b in zip(rk.calls, rp.calls):
+            differ = (a["top_i"] != b["top_i"]).any(-1)
+            out["flips"].append(int(differ.sum()))
+            if "probs" in b:
+                top = torch.sort(b["probs"], -1, descending=True).values
+                kk = min(k, e - 1)    # the gaps that order and pick the k
+                gaps = (top[..., :kk] - top[..., 1:kk + 1]).amin(-1)
+                nearest = float(gaps.min())
+                out["nearest_tie"] = nearest if out["nearest_tie"] is None \
+                    else min(out["nearest_tie"], nearest)
+                if bool(differ.any()):
+                    worst = float(gaps[differ].max())
+                    out["flip_margin_max"] = max(out["flip_margin_max"],
+                                                 worst)
+            for key, rec in (("drops", a), ("plain_drops", b)):
+                hit = moe._capacity_slots(rec["top_p"], rec["top_i"], e,
+                                          cap)[1]
+                out[key].append(int(rec["top_i"].numel() - hit.sum()))
+        return out
+
+    def _moe_f32(self, base) -> dict:
+        """Full width, MOE_F32_LAYERS layers, f32: a 1 x MOE_F32_SEQ prefill
+        through the kernels against one through the plain versions (logits
+        within LOGIT_TOL; routing equal, or different only within
+        MOE_TIE_MARGIN of a tie; drops at the config's factor equal), then
+        the five impls on one layer's weights at capacity factor
+        MOE_ORACLE_CF against `dense`, each a swiglu launch."""
+        torch = self.torch
+        import dataclasses
+        import numpy as np
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model, moe
+        cfg = base.replace(n_layers=MOE_F32_LAYERS, dtype="float32",
+                           attn_impl="flash")
+        gen = torch.Generator(device=self.dev).manual_seed(self.seed + 600)
+        model = build_model(cfg, device=self.dev).init(gen)
+        toks = np.random.default_rng(self.seed + 600).integers(
+            0, cfg.vocab, (1, MOE_F32_SEQ))
+        with _Routing(torch, probs=True) as rk:
+            ops.reset_launch_counts()
+            lk, _ = model.prefill({"tokens": toks})
+            counts = self._moe_counts()
+        model.backend, model.cfg = "plain", cfg.replace(attn_impl="chunked")
+        with _Routing(torch, probs=True) as rp:
+            lp, _ = model.prefill({"tokens": toks})
+        model.backend, model.cfg = "auto", cfg
+        n = cfg.n_layers
+        check(self._moe_counts() == counts == {
+            "flash_attention": n, "rmsnorm": 2 * n + 1, "swiglu": n,
+            "rmsnorm_bwd": 0, "swiglu_bwd": 0},
+            f"moe f32: launches {counts} for a {n}-layer prefill, none for "
+            "the plain one")
+        err = float((lk - lp).abs().max())
+        tol = LOGIT_TOL * max(1.0, float(lp.abs().max()))
+        check(bool(torch.isfinite(lk).all()) and lk.shape == (1, cfg.vocab)
+              and err <= tol,
+              f"moe f32: prefill logits kernels vs plain {err} > {tol}")
+        routing = self._routing_agree("f32 prefill, kernels vs plain", cfg,
+                                      rk, rp, MOE_F32_SEQ)
+        emit({"phase": "moe", "routing": routing})
+        check(routing["flip_margin_max"] < MOE_TIE_MARGIN,
+              f"moe f32: routing differs beyond a tie: {routing}")
+        check(routing["drops"] == routing["plain_drops"],
+              f"moe f32: drops differ between the routes: {routing}")
+        # the five impls on layer 0's weights, no drops, against dense
+        p0 = {name: t.detach() for name, t in
+              model.segments["seg_00"][0].items()}
+        x = torch.randn((1, MOE_F32_SEQ, cfg.d_model), generator=gen,
+                        device=self.dev)
+        outs, impl_launches = {}, {}
+        with torch.inference_mode():
+            for impl in ("dense", "capacity", "gather", "ragged", "hybrid"):
+                c = cfg.replace(moe=dataclasses.replace(
+                    cfg.moe, impl=impl, capacity_factor=MOE_ORACLE_CF))
+                ops.reset_launch_counts()
+                outs[impl] = moe.moe_apply(p0, x, c)
+                impl_launches[impl] = ops.SWIGLU_LAUNCHES
+        dense = outs["dense"]
+        itol = MOE_IMPL_TOL * max(1.0, float(dense.abs().max()))
+        impl_err = {impl: float((o - dense).abs().max())
+                    for impl, o in outs.items()}
+        check(all(v == 1 for v in impl_launches.values())
+              and all(v <= itol for v in impl_err.values())
+              and all(bool(torch.isfinite(o).all()) for o in outs.values()),
+              f"moe f32: impls against dense {impl_err} (tol {itol}), "
+              f"swiglu launches {impl_launches}")
+        del model, outs, dense, x, p0
+        torch.cuda.empty_cache()
+        return {"layers": n, "seq": MOE_F32_SEQ,
+                "prefill_logit_max_abs_err": err, "tol": tol,
+                "launches": counts, "routing": routing,
+                "impls_vs_dense": {"capacity_factor": MOE_ORACLE_CF,
+                                   "max_abs_err": impl_err, "tol": itol,
+                                   "swiglu_launches": impl_launches}}
+
+    def _moe_serve(self, base, launches) -> dict:
+        """Full width and depth, bf16, random weights from the seed: the
+        parameter count and the f32 routers; a 4 x 4096 prefill with flash
+        (exact launches, caches, seconds, tokens/s); its last-token logits
+        against the plain versions' and the routing flips between them; a
+        ServeEngine run of 4 requests (prompt 64, MOE_SERVE_MAX_NEW new
+        tokens, 4 slots) with exact launches, step p50 / p99, the idle
+        share of a warm step and the peak memory; decode_step against a
+        longer prefill at capacity factor MOE_ORACLE_CF."""
+        torch = self.torch
+        import dataclasses
+        import numpy as np
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model
+        from repro_torch.serving.engine import Request, ServeEngine
+        from torch.profiler import ProfilerActivity, profile
+        cfg = base.replace(attn_impl="flash")
+        vocab, n = cfg.vocab, cfg.n_layers
+        rng = np.random.default_rng(self.seed + 610)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(self.seed + 610))
+        torch.cuda.synchronize()
+        res = {"init_s": time.perf_counter() - t0,
+               "params": model.param_count()}
+        f32 = [name for name, p in model.named_parameters()
+               if p.dtype == torch.float32]
+        check(res["params"] == 6_919_096_320 and len(f32) == n
+              and all(name.endswith(".router") for name in f32)
+              and model.dtype == torch.bfloat16,
+              f"moe: {res['params']} parameters, f32 {f32}")
+        toks = rng.integers(0, vocab, (MOE_PREFILL_BATCH, TRAIN_SEQ))
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, prefill: counts from 0 just before, read just after
+        with _Routing(torch) as rk:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, caches = model.prefill({"tokens": toks})
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            pre = self._moe_counts()
+        check(pre == {"flash_attention": n, "rmsnorm": 2 * n + 1,
+                      "swiglu": n, "rmsnorm_bwd": 0, "swiglu_bwd": 0},
+              f"moe: prefill launches {pre} (16/33/16 expected)")
+        check(logits.shape == (MOE_PREFILL_BATCH, vocab) and bool(torch.isfinite(logits).all())
+              and len(caches["seg_00"]) == n
+              and all(c[key].shape == (MOE_PREFILL_BATCH, TRAIN_SEQ,
+                                       cfg.n_kv_heads, cfg.hd)
+                      and c[key].dtype == torch.bfloat16
+                      for c in caches["seg_00"] for key in ("k", "v")),
+              "moe: prefill logits finite, caches (4, 4096, 16, 128) x 16")
+        del caches
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            again, caches = model.prefill({"tokens": toks})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del caches
+        prefill_s = statistics.median(times)
+        # one more under the profiler (device activity only)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, caches = model.prefill({"tokens": toks})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        del caches
+        res["profiled_prefill"] = self._step_breakdown(prof, wall)
+        res["prefill"] = {
+            "batch": MOE_PREFILL_BATCH, "seq": TRAIN_SEQ,
+            "first_call_s": first_s,
+            "seconds": times, "median_s": prefill_s,
+            "tokens_per_s": MOE_PREFILL_BATCH * TRAIN_SEQ / prefill_s,
+            "launches": pre,
+            "repeat_bitwise": bool(torch.equal(again, logits)),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        for key in launches:
+            launches[key] += pre[key]
+        # the kernels against the plain versions at full depth
+        model.backend, model.cfg = "plain", cfg.replace(attn_impl="chunked")
+        with _Routing(torch) as rp:
+            lp, caches = model.prefill({"tokens": toks})
+        del caches
+        model.backend, model.cfg = "auto", cfg
+        res["kernels_vs_plain_bf16"] = self._bf16_logits_agree(
+            "moe prefill (4, 4096), kernels vs plain", logits, lp,
+            MOE_BF16_LOGIT_TOL)
+        res["routing"] = self._routing_agree(
+            "bf16 prefill (4, 4096), kernels vs plain", cfg, rk, rp,
+            TRAIN_SEQ)
+        emit({"phase": "moe", "routing": res["routing"]})
+        del rk, rp, lp, again
+        torch.cuda.empty_cache()
+        # the main path, serving: counts from 0 just before, read just after
+        eng = ServeEngine(model, n_slots=4, cache_len=256)
+        reqs = [Request(uid=i, prompt=rng.integers(0, vocab, 64),
+                        max_new=MOE_SERVE_MAX_NEW) for i in range(4)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        served = self._moe_counts()
+        calls = eng.n_decode_calls
+        check(served == {"flash_attention": 0, "rmsnorm": (2 * n + 1) * calls,
+                         "swiglu": n * calls, "rmsnorm_bwd": 0,
+                         "swiglu_bwd": 0},
+              f"moe: engine launches {served} for {calls} decode steps "
+              "(33/16 per step expected)")
+        check(len(done) == 4
+              and all(len(r.out) == MOE_SERVE_MAX_NEW for r in done)
+              and all(0 <= t < vocab for r in done for t in r.out),
+              f"moe: 4 requests of {MOE_SERVE_MAX_NEW} tokens in the "
+              "vocabulary")
+        for key in launches:
+            launches[key] += served[key]
+        steps = eng.step_seconds
+        res["serve"] = {
+            "requests": 4, "prompt": 64, "max_new": MOE_SERVE_MAX_NEW,
+            "slots": 4, "cache_len": 256, "seconds": run_s,
+            "decode_calls": calls, "ticks": len(steps),
+            "step_p50_ms": float(np.percentile(steps, 50)) * 1e3,
+            "step_p99_ms": float(np.percentile(steps, 99)) * 1e3,
+            "new_tokens_per_s_run": sum(len(r.out) for r in done) / run_s,
+            "launches": served,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        res["decode_idle"] = self._decode_idle(model, eng, steps)
+        del eng
+        # decode_step after prefill(64) against prefill(65), no drops
+        model.cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_ORACLE_CF))
+        short = rng.integers(0, vocab, (1, 65))
+        _, c64 = model.prefill({"tokens": short[:, :64]})
+        l65, _ = model.prefill({"tokens": short})
+        pad = {seg: [{k: torch.cat([c[k], torch.zeros_like(c[k][:, :1])], 1)
+                      for k in c} for c in layers]
+               for seg, layers in c64.items()}
+        ld, _ = model.decode_step(pad, short[:, 64:65],
+                                  np.full((1,), 64, np.int64))
+        model.cfg = cfg
+        res["decode_vs_prefill_bf16"] = self._bf16_logits_agree(
+            "moe decode_step after prefill(64) vs prefill(65), capacity "
+            f"factor {MOE_ORACLE_CF}", ld, l65, MOE_BF16_LOGIT_TOL)
+        del model, c64, pad
+        torch.cuda.empty_cache()
+        return res
+
+    def _moe_train(self, base, launches) -> dict:
+        """olmoe at full width and MOE_TRAIN_LAYERS layers, bf16, remat
+        "full", chunked attention: MOE_TRAIN_STEPS steps of MOE_TRAIN_BATCH
+        x TRAIN_SEQ tokens with exact launch counts a step, the first
+        MOE_TRAIN_PLAIN_STEPS against the plain versions from the same
+        state; step p50, tokens/s, peak memory and the model-FLOP share
+        with the active parameters.  Then full width, 2 layers, f32: the
+        loss and every gradient against the plain versions."""
+        torch = self.torch
+        from repro_torch.configs import TrainConfig
+        from repro_torch.data.tokens import TokenPipeline
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model, moe
+        from repro_torch.training import make_train_step, train_state_init
+        from torch.profiler import ProfilerActivity, profile
+        cfg = base.replace(n_layers=MOE_TRAIN_LAYERS)
+        n, b, s = cfg.n_layers, MOE_TRAIN_BATCH, TRAIN_SEQ
+        tokens = b * s
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                           total_steps=MOE_TRAIN_STEPS)
+        pipe = TokenPipeline(cfg.vocab, b, s, seed=self.seed)
+        # per step with remat "full": each block's two norms and its swiglu
+        # run again in the backward's recompute
+        per_step = {"flash_attention": 0, "rmsnorm": 4 * n + 1,
+                    "swiglu": 2 * n, "rmsnorm_bwd": 2 * n + 1,
+                    "swiglu_bwd": n}
+        seed = self.seed + 620
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(seed))
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        probe = {k: params[k][:2].clone() for k in (
+            "tok_embed", "segments.seg_00.0.we_g",
+            "segments.seg_00.0.router")}
+        n_params = sum(p.numel() for p in params.values())
+        check(n_params == 3_562_571_776,
+              f"moe train: {n_params} parameters at {n} layers")
+        state = train_state_init(params, tcfg)
+        step = make_train_step(model, tcfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        mets, times, first, breakdown = [], [], None, None
+        for i in range(MOE_TRAIN_STEPS):
+            # step 2 under the profiler (device activity only), so that
+            # the p50 over steps 3 on is of unprofiled steps
+            prof = profile(activities=[ProfilerActivity.CUDA]) \
+                if i == 1 else contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with prof:
+                state, m = step(state, pipe.batch_at(i))
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            mets.append({k: float(v) for k, v in m.items()})
+            if first is None:
+                first = self._moe_counts()
+            if i == 1:
+                breakdown = self._step_breakdown(prof, times[-1])
+        counts = self._moe_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(first == per_step,
+              f"moe train: launches of one step {first}, expected {per_step}")
+        check(counts == {k: MOE_TRAIN_STEPS * v for k, v in per_step.items()},
+              f"moe train: launches of {MOE_TRAIN_STEPS} steps {counts}")
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                  for m in mets) and [int(m["step"]) for m in mets]
+              == list(range(1, MOE_TRAIN_STEPS + 1)),
+              f"moe train: losses and grad norms finite, steps counted: "
+              f"{mets}")
+        for key in launches:
+            launches[key] += counts[key]
+        # the plain versions from the same state
+        del state
+        torch.cuda.empty_cache()
+        model.init(torch.Generator(device=self.dev).manual_seed(seed))
+        check(all(torch.equal(params[k][:2], v) for k, v in probe.items()),
+              "moe train: the weights drawn again from the seed are the same")
+        state = train_state_init(params, tcfg)
+        plain = make_train_step(build_model(cfg, device="meta",
+                                            backend="plain"), tcfg)
+        ops.reset_launch_counts()
+        pmets, ptimes = [], []
+        for i in range(MOE_TRAIN_PLAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = plain(state, pipe.batch_at(i))
+            torch.cuda.synchronize()
+            ptimes.append(time.perf_counter() - t0)
+            pmets.append({k: float(v) for k, v in m.items()})
+        check(all(v == 0 for v in self._moe_counts().values()),
+              "moe train: the plain run launched a kernel")
+        agree = []
+        for i, (k, p) in enumerate(zip(mets, pmets)):
+            dl = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+            dg = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
+            check(dl <= TRAIN_LOSS_TOL and dg <= TRAIN_GNORM_TOL
+                  and k["lr"] == p["lr"],
+                  f"moe train: step {i + 1} kernels {k} against plain {p}")
+            agree.append({"step": i + 1, "loss_rel": dl, "grad_norm_rel": dg})
+        del state, params, model, step, plain
+        torch.cuda.empty_cache()
+        p50 = statistics.median(times[2:])
+        n_active = moe.active_params(cfg, n_params)
+        attn = 3 * 2.0 * b * s * s * cfg.n_heads * cfg.hd * n
+        model_flops = 6.0 * n_active * tokens + attn
+        res = {
+            "layers": n, "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "remat": cfg.remat, "attn_impl": cfg.attn_impl,
+            "moe_impl": cfg.moe.impl, "batch": b, "seq": s,
+            "steps": MOE_TRAIN_STEPS, "params": n_params,
+            "active_params": n_active, "init_s": init_s,
+            "step_seconds": times,
+            f"step_p50_s_steps_3_to_{MOE_TRAIN_STEPS}": p50,
+            "tokens_per_s": tokens / p50, "peak_memory_gb": peak / 1e9,
+            "model_flops_per_step": model_flops,
+            "attention_flops_per_step": attn,
+            "model_flop_share_of_989_tflops":
+                model_flops / p50 / PEAK_BF16_FLOPS,
+            "profiled_step": breakdown,
+            "metrics": mets, "launches_one_step": first, "launches": counts,
+            "plain_metrics": pmets, "plain_step_seconds": ptimes,
+            "kernels_vs_plain": agree,
+            "tol": {"loss": TRAIN_LOSS_TOL, "grad_norm": TRAIN_GNORM_TOL}}
+        res["f32_2_layers"] = self._moe_train_f32(base, pipe)
+        return res
+
+    def _moe_train_f32(self, base, pipe) -> dict:
+        """Full width, 2 layers, f32: the loss and every gradient with the
+        kernels against the plain versions on one 1 x MOE_F32_SEQ batch,
+        with the routing flips of the two runs' router calls."""
+        torch = self.torch
+        from repro_torch.data.tokens import TokenPipeline
+        from repro_torch.models import build_model
+        from repro_torch.training import loss_and_grads
+        cfg2 = base.replace(n_layers=2, dtype="float32")
+        model = build_model(cfg2, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(self.seed + 621))
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        batch = TokenPipeline(cfg2.vocab, 1, MOE_F32_SEQ,
+                              seed=self.seed).batch_at(0)
+        with _Routing(torch) as rk:
+            lk, gk = loss_and_grads(model, params, batch)
+        with _Routing(torch) as rp:
+            lp, gp = loss_and_grads(
+                build_model(cfg2, device="meta", backend="plain"), params,
+                batch)
+        flips = [int((a["top_i"] != c["top_i"]).any(-1).sum())
+                 for a, c in zip(rk.calls, rp.calls)]
+        loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        worst, worst_name = 0.0, ""
+        for k in gp:
+            scale = float(gp[k].abs().max())
+            r = float((gk[k] - gp[k]).abs().max()) / max(scale, 1e-30)
+            if r > worst:
+                worst, worst_name = r, k
+        check(math.isfinite(float(lk)) and loss_rel <= TRAIN_F32_LOSS_RTOL
+              and worst <= TRAIN_F32_GRAD_TOL,
+              f"moe train f32: loss rel {loss_rel}, worst gradient "
+              f"{worst_name} {worst} of its max abs; routing flips {flips}")
+        del model, params, gk, gp
+        torch.cuda.empty_cache()
+        return {"batch": 1, "seq": MOE_F32_SEQ, "loss": float(lk),
+                "loss_rel": loss_rel, "worst_grad_err_over_max": worst,
+                "worst_grad": worst_name, "router_calls": len(flips),
+                "routing_flips": flips,
+                "tol": {"loss_rel": TRAIN_F32_LOSS_RTOL,
+                        "grad": TRAIN_F32_GRAD_TOL}}
+
+    def _moe_phi(self, launches) -> dict:
+        """phi3.5-moe-42b-a6.6b at full width and 2 layers, bf16: a 1 x 4096
+        prefill through the kernels (exact launches) against the plain
+        versions, with the routing flips between them."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.configs import get_arch
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model
+        cfg = get_arch("phi3.5-moe-42b-a6.6b").replace(n_layers=2,
+                                                       attn_impl="flash")
+        check(cfg.d_model == 4096 and cfg.n_heads == 32
+              and cfg.n_kv_heads == 8 and cfg.d_ff == 6400
+              and cfg.moe.n_experts == 16 and cfg.moe.top_k == 2
+              and cfg.dtype == "bfloat16", "moe: phi3.5-moe's configuration")
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(self.seed + 630))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        toks = np.random.default_rng(self.seed + 630).integers(
+            0, cfg.vocab, (1, TRAIN_SEQ))
+        with _Routing(torch) as rk:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            lk, caches = model.prefill({"tokens": toks})
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            counts = self._moe_counts()
+        check(counts == {"flash_attention": 2, "rmsnorm": 5, "swiglu": 2,
+                         "rmsnorm_bwd": 0, "swiglu_bwd": 0}
+              and caches["seg_00"][0]["k"].shape == (1, TRAIN_SEQ, 8, 128),
+              f"moe phi3.5: prefill launches {counts}")
+        for key in launches:
+            launches[key] += counts[key]
+        del caches
+        model.backend, model.cfg = "plain", cfg.replace(attn_impl="chunked")
+        with _Routing(torch) as rp:
+            lp, _ = model.prefill({"tokens": toks})
+        res = {"layers": 2, "seq": TRAIN_SEQ, "init_s": init_s,
+               "prefill_first_call_s": prefill_s,
+               "params": model.param_count(), "launches": counts,
+               "kernels_vs_plain_bf16": self._bf16_logits_agree(
+                   "phi3.5-moe prefill (1, 4096), kernels vs plain", lk, lp,
+                   MOE_BF16_LOGIT_TOL),
+               "routing": self._routing_agree(
+                   "phi3.5-moe bf16 prefill, kernels vs plain", cfg, rk, rp,
+                   TRAIN_SEQ)}
+        del model, rk, rp
+        torch.cuda.empty_cache()
+        return res
+
+    def _moe_kernel_times(self):
+        """swiglu and swiglu_bwd on olmoe's expert-grouped prefill tensor
+        (4, 64, 640, 1024) bf16, and flash_attention at its prefill
+        (4, 16/16, 4096, 128) bf16, each against its plain version and
+        timed beside the bound (and, for flash, SDPA)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.swiglu import swiglu, swiglu_bwd
+        g = torch.Generator(device=self.dev).manual_seed(self.seed + 640)
+        bf16 = torch.bfloat16
+
+        def randn(shape, mul=1.0):
+            return (torch.randn(shape, generator=g, device=self.dev)
+                    * mul).to(bf16)
+        with torch.inference_mode():
+            shape = (4, 64, 640, 1024)
+            a, u, dy = randn(shape, 3.0), randn(shape), randn(shape)
+            self._lm_agree("swiglu", f"moe {list(shape)} bf16", swiglu(a, u),
+                           ref.swiglu_ref(a, u))
+            dg, du = swiglu_bwd(a, u, dy)
+            pg, pu = ref.swiglu_bwd_ref(a, u, dy)
+            self._lm_agree("swiglu_bwd", f"moe {list(shape)} bf16 dgate", dg,
+                           pg)
+            self._lm_agree("swiglu_bwd", f"moe {list(shape)} bf16 dup", du, pu)
+            del dg, du, pg, pu
+            self._time_kernel(
+                "swiglu", "moe_prefill", lambda: swiglu(a, u),
+                lambda: ref.swiglu_ref(a, u), flops=5.0 * a.numel(),
+                nbytes=2.0 * 3 * a.numel(), gate=list(shape),
+                dtype="bfloat16")
+            self._time_kernel(
+                "swiglu_bwd", "moe_train", lambda: swiglu_bwd(a, u, dy),
+                lambda: ref.swiglu_bwd_ref(a, u, dy),
+                flops=12.0 * a.numel(), nbytes=2.0 * 5 * a.numel(),
+                gate=list(shape), dtype="bfloat16")
+            del a, u, dy
+            b, h, s, dh = 4, 16, 4096, 128
+            q, k, v = (randn((b, s, h, dh)).transpose(1, 2)
+                       for _ in range(3))
+            self._lm_agree("flash_attention",
+                           f"moe prefill {list(q.shape)} bf16 views",
+                           flash_attention(q, k, v),
+                           ref.flash_attention_ref(q, k, v))
+            torch.cuda.empty_cache()
+            flops = 2.0 * s * s * dh * b * h     # both products, causal half
+            self._time_kernel(
+                "flash_attention", "moe_prefill",
+                lambda: flash_attention(q, k, v),
+                lambda: ref.flash_attention_ref(q, k, v),
+                flops=flops, nbytes=2.0 * 4 * q.numel(),
+                peak_flops=PEAK_BF16_FLOPS,
+                library=lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True),
+                q=list(q.shape), kv=list(k.shape), dtype="bfloat16",
+                causal=True, sdpa=self._sdpa_backends(q, k, v))
+            del q, k, v
+        torch.cuda.empty_cache()
 
     # ---------------------------------------------------- serve_clusters
     def serve_clusters(self):
@@ -3584,7 +4247,6 @@ class Smoke:
 def _losses_of(main, argv) -> dict:
     """Run a training example's `main(argv)` with its output captured:
     the first printed step loss and the final loss it returns."""
-    import contextlib
     import io
     import re
     buf = io.StringIO()
@@ -3725,6 +4387,34 @@ def _ptxas_summary(log: str) -> list[dict]:
     except OSError:
         pass
     return rows
+
+
+class _Routing:
+    """While active, records every call of the port's MoE router
+    (`models.moe._router`) in order: its (top_p, top_i) and, with `probs`,
+    the full softmax of its input."""
+
+    def __init__(self, torch, probs: bool = False):
+        self.torch, self.probs, self.calls = torch, probs, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.module, self.router = moe, moe._router
+
+        def recorded(p, x, cfg):
+            top_p, top_i = self.router(p, x, cfg)
+            rec = {"top_p": top_p.detach(), "top_i": top_i.detach()}
+            if self.probs:
+                rec["probs"] = self.torch.softmax(
+                    x.detach().float() @ p["router"].detach(), dim=-1)
+            self.calls.append(rec)
+            return top_p, top_i
+        moe._router = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module._router = self.router
+        return False
 
 
 def _device_events(prof) -> list[tuple[str, float, int]]:

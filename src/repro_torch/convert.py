@@ -22,7 +22,9 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.occ import CenterPool, OCCStats
-from repro_torch.models.model import Model, _seg_key, layer_of
+from repro_torch.models.model import (
+    Model, _seg_key, layer_of, stacked_segments,
+)
 from repro_torch.models.transformer import segments_for
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.compression import EFState
@@ -126,7 +128,9 @@ def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda",
                              f"!= port {sorted(layers[0].keys())}")
         for name, a in stacked.items():
             for layer in range(count):
-                put(layers[layer][name], _np(a)[layer])
+                # a segment of one layer is not stacked in the JAX package
+                put(layers[layer][name], _np(a) if count == 1
+                    else _np(a)[layer])
     return model
 
 
@@ -148,20 +152,24 @@ def _np(a) -> np.ndarray:
 
 def _from_jax_layout(tree: dict, names, device) -> dict[str, torch.Tensor]:
     """Per-name f32 tensors on `device` from a JAX-layout tree (a segment's
-    leaves stacked over layers)."""
+    leaves stacked over its layers when it has more than one)."""
+    stacked = stacked_segments(names)
     out = {}
     for n in names:
         at = layer_of(n)
-        a = (_np(tree[n]) if at is None
-             else _np(tree["segments"][at[0]][at[2]])[at[1]])
+        if at is None:
+            a = _np(tree[n])
+        else:
+            a = _np(tree["segments"][at[0]][at[2]])
+            a = a[at[1]] if at[0] in stacked else a
         out[n] = torch.as_tensor(np.array(a, dtype=np.float32), device=device)
     return out
 
 
 def _to_jax_layout(named: dict[str, torch.Tensor]) -> dict:
     """The JAX-layout numpy tree of per-name tensors: each segment's layers
-    stacked in layer order; bfloat16 widened to f32 (exact; numpy has no
-    bfloat16)."""
+    stacked in layer order (a segment of one layer as it is); bfloat16
+    widened to f32 (exact; numpy has no bfloat16)."""
     def host(t):
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
@@ -174,9 +182,11 @@ def _to_jax_layout(named: dict[str, torch.Tensor]) -> dict:
             tree[n] = host(t)
         else:
             stacks.setdefault(at[0], {}).setdefault(at[2], {})[at[1]] = t
+    stacked = stacked_segments(named)
     if stacks:
         tree["segments"] = {
-            seg: {leaf: np.stack([host(layers[i]) for i in sorted(layers)])
+            seg: {leaf: (np.stack([host(layers[i]) for i in sorted(layers)])
+                         if seg in stacked else host(layers[0]))
                   for leaf, layers in leaves.items()}
             for seg, leaves in stacks.items()}
     return tree

@@ -359,10 +359,17 @@ class OCCEngine:
                                   accepted=n_acc,
                                   dispatches=self.n_dispatches))
             if n_epochs:
+                # Each span ends exactly where the next starts: ts + dur of
+                # a step taken as the difference of two boundaries lands on
+                # the boundary, where ts0 + e * step + step can miss it by
+                # an ulp of a large monotonic clock and break the nesting.
                 step = dur / n_epochs
+                edge = [ts0 + e * step for e in range(n_epochs)]
+                edge.append(ts0 + dur)
                 for e in range(n_epochs):
                     tr.complete(
-                        "engine.epoch", ts0 + e * step, step, cat="engine",
+                        "engine.epoch", edge[e], edge[e + 1] - edge[e],
+                        cat="engine",
                         args=dict(epoch=e, proposed=int(prop[e]),
                                   accepted=int(acc[e]), cap=int(cap[e]),
                                   synthetic_timing=True))

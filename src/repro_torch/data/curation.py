@@ -55,7 +55,7 @@ def curate(embeds, lam: float, pb: int, k_max: int = 512,
     """
     if mesh is not None:
         raise NotImplementedError("multi-card meshes are not ported yet "
-                                  "(ROADMAP.md queue 1, item 7)")
+                                  "(ROADMAP.md queue 1: multi-card)")
     if device is None:
         device = embeds.device if isinstance(embeds, torch.Tensor) else "cuda"
     res = occ_dp_means(embeds, lam, pb=pb, k_max=k_max, max_iters=2,

@@ -50,7 +50,7 @@ def main(argv=None):
 
     if args.mesh != "none":
         raise NotImplementedError("meshes wait for the multi-card slice "
-                                  "(ROADMAP.md queue 1, item 7)")
+                                  "(ROADMAP.md queue 1: multi-card)")
     dev = resolve_device(args.device)
     arch = get_arch(args.arch)
     if args.reduced:

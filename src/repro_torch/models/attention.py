@@ -167,7 +167,7 @@ def attention_decode(p, x, cfg, cache, pos, mode: str = "tp", mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             "sharded decode waits for the multi-card slice (ROADMAP.md "
-            "queue 1, item 11: cp decode and sharding)")
+            "queue 1: multi-card)")
     if mode not in ("tp", "cp"):
         raise ValueError(f"unknown decode mode {mode!r}")
     b = x.shape[0]

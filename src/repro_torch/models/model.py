@@ -9,6 +9,9 @@ names:
   segments.seg_00 = [per-layer ParameterDict]  (the JAX package stacks the
                                                 layers and scans them)
 
+every tensor in the config's dtype but the MoE router, which is f32 (as
+in the JAX package).
+
 Caches mirror the segments: {"seg_00": [{"k", "v"} per layer]}, each
 (B, S, Hkv, hd); `convert.lm_caches_to_numpy` gives them in the JAX
 layout.  `decode_step` writes the caches in place.  The parameters are
@@ -37,7 +40,8 @@ from repro_torch.models.transformer import (
     run_stack_decode, run_stack_train, segments_for,
 )
 
-__all__ = ["Model", "build_model", "layer_of"]
+__all__ = ["Model", "build_model", "layer_of", "stacked_segments",
+           "jax_ranks"]
 
 
 def _seg_key(i: int) -> str:
@@ -52,6 +56,34 @@ def layer_of(name: str) -> tuple[str, int, str] | None:
     if parts[0] == "segments" and len(parts) == 4:
         return parts[1], int(parts[2]), parts[3]
     return None
+
+
+def stacked_segments(names) -> set[str]:
+    """The segment keys among `names` (parameter names) whose layers the
+    JAX package stacks on a leading dim: those of more than one layer.  A
+    segment of one layer is not stacked (`init_block` without the vmap),
+    nor is a shared segment (`params["shared"]`, one set of tensors for
+    all its uses, which `segments_for` gives a count of 1)."""
+    layers: dict[str, set[int]] = {}
+    for n in names:
+        at = layer_of(n)
+        if at is not None:
+            layers.setdefault(at[0], set()).add(at[1])
+    return {seg for seg, ls in layers.items() if len(ls) > 1}
+
+
+def jax_ranks(params: dict) -> dict[str, int]:
+    """name -> the rank of the tensor as the JAX package lays it out: one
+    more than its own for a block tensor of a stacked segment
+    ("segments.seg_00.3.norm1" (D,) is a row of the (L, D) leaf); its own
+    for tok_embed, lm_head, final_norm and the tensors of a segment that
+    is not stacked (`stacked_segments`)."""
+    stacked = stacked_segments(params)
+    out = {}
+    for n, t in params.items():
+        at = layer_of(n)
+        out[n] = t.dim() + int(at is not None and at[0] in stacked)
+    return out
 
 
 class Model(nn.Module):
@@ -70,7 +102,8 @@ class Model(nn.Module):
         if cfg.frontend:
             raise NotImplementedError(
                 "modality frontends and the encoder-decoder are not ported "
-                "yet (ROADMAP.md queue 1, item 11)")
+                "yet (ROADMAP.md queue 1: frontends and the "
+                "encoder-decoder)")
         segs = segments_for(cfg)
         for kind, _, _ in segs:
             require_ported(kind)
@@ -81,16 +114,16 @@ class Model(nn.Module):
         self.backend = backend
         dt = getattr(torch, cfg.dtype)
 
-        def empty(*shape):
-            return nn.Parameter(torch.empty(shape, dtype=dt, device=dev))
+        def empty(*shape, dtype=dt):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=dev))
         self.tok_embed = empty(cfg.vocab, cfg.d_model)
         self.final_norm = empty(cfg.d_model)
         self.lm_head = None if cfg.tie_embeddings else empty(cfg.d_model,
                                                              cfg.vocab)
         self.segments = nn.ModuleDict({
             _seg_key(i): nn.ModuleList([
-                nn.ParameterDict({n: empty(*s) for n, s in
-                                  block_shapes(cfg, kind).items()})
+                nn.ParameterDict({n: empty(*s, dtype=t) for n, (s, t) in
+                                  block_shapes(cfg, kind, dt).items()})
                 for _ in range(count)])
             for i, (kind, count, _) in enumerate(segs)})
 
@@ -150,7 +183,7 @@ class Model(nn.Module):
         if enc_out is not None:
             raise NotImplementedError(
                 "the encoder-decoder is not ported yet "
-                "(ROADMAP.md queue 1, item 8)")
+                "(ROADMAP.md queue 1: frontends and the encoder-decoder)")
         caches = {}
         for i, (kind, _, _) in enumerate(segments_for(self.cfg)):
             x, cache = run_stack_train(

@@ -3,9 +3,10 @@
 The port of `repro/models/transformer.py`.  A model body is a list of
 segments (`segments_for`, the same layout as the JAX package); a segment
 is a list of per-layer parameter dicts run in a Python loop, where the JAX
-package stacks them and scans.  This slice runs the `attn_mlp` kind (dense
-and vision-language families); the other kinds raise NotImplementedError
-naming the ROADMAP.md item that ports them.
+package stacks them and scans.  The port runs the `attn_mlp` kind (dense
+and vision-language families) and the `attn_moe` kind (the MoE family:
+`models/moe.py` in place of the MLP); the other kinds raise
+NotImplementedError naming the ROADMAP.md item that ports them.
 
 Where autograd records, `run_stack_train` rematerializes each block as
 `cfg.remat` says (the counterpart of the JAX package's `_remat_wrap`):
@@ -26,22 +27,22 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import mlp_apply, mlp_init, rmsnorm
 
 __all__ = ["SEGMENT_KINDS", "require_ported", "segments_for", "block_shapes",
            "init_block", "block_train", "block_decode", "init_block_cache",
            "run_stack_train", "run_stack_decode"]
 
-SEGMENT_KINDS = ("attn_mlp",)   # the kinds this slice runs
+SEGMENT_KINDS = ("attn_mlp", "attn_moe")   # the kinds the port runs
 
 _LATER = {
-    "attn_moe": "ROADMAP.md queue 1, item 11: moe",
-    "mamba": "ROADMAP.md queue 1, item 11: hybrid/ssm",
-    "shared_attn": "ROADMAP.md queue 1, item 11: hybrid/ssm",
-    "mlstm": "ROADMAP.md queue 1, item 11: xlstm",
-    "slstm": "ROADMAP.md queue 1, item 11: xlstm",
-    "dec_attn_mlp": "ROADMAP.md queue 1, item 11: the encoder-decoder",
-    "enc_attn_mlp": "ROADMAP.md queue 1, item 11: the encoder-decoder",
+    "mamba": "ROADMAP.md queue 1: hybrid/ssm",
+    "shared_attn": "ROADMAP.md queue 1: hybrid/ssm",
+    "mlstm": "ROADMAP.md queue 1: xlstm",
+    "slstm": "ROADMAP.md queue 1: xlstm",
+    "dec_attn_mlp": "ROADMAP.md queue 1: frontends and the encoder-decoder",
+    "enc_attn_mlp": "ROADMAP.md queue 1: frontends and the encoder-decoder",
 }
 
 
@@ -89,19 +90,26 @@ def segments_for(cfg) -> list[tuple[str, int, bool]]:
     raise ValueError(f"unknown family {fam}")
 
 
-def block_shapes(cfg, kind: str) -> dict[str, tuple[int, ...]]:
-    """Parameter names and shapes of one block, as `init_block` makes
-    them (the model allocates from this before filling)."""
+def block_shapes(cfg, kind: str, dtype
+                 ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """Parameter names, shapes and dtypes of one block, as `init_block`
+    makes them (the model allocates from this before filling): every tensor
+    in `dtype` but the MoE router, which is f32."""
     require_ported(kind)
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     shapes = {"norm1": (d,), "wq": (d, h * hd), "wk": (d, hkv * hd),
               "wv": (d, hkv * hd), "wo": (h * hd, d)}
     if cfg.qk_norm:
         shapes["qn"] = shapes["kn"] = (hd,)
-    if cfg.d_ff:
+    if kind == "attn_moe":
+        shapes["norm2"] = (d,)
+    elif cfg.d_ff:
         shapes.update(norm2=(d,), wg=(d, cfg.d_ff), wu=(d, cfg.d_ff),
                       wd=(cfg.d_ff, d))
-    return shapes
+    out = {n: (s, dtype) for n, s in shapes.items()}
+    if kind == "attn_moe":
+        out.update(moe_mod.moe_shapes(cfg, dtype))
+    return out
 
 
 def init_block(gen: torch.Generator, cfg, kind: str, dtype
@@ -110,22 +118,32 @@ def init_block(gen: torch.Generator, cfg, kind: str, dtype
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype,   # noqa: E731
                               device=gen.device)
     p = {"norm1": ones(), **attn.init_attention(gen, cfg, dtype)}
-    if cfg.d_ff:
+    if kind == "attn_moe":
+        p["norm2"] = ones()
+        p.update(moe_mod.init_moe(gen, cfg, dtype))
+    elif cfg.d_ff:
         p["norm2"] = ones()
         p.update(mlp_init(gen, cfg.d_model, cfg.d_ff, dtype))
     return p
 
 
+def _ffn(p, x, cfg, backend):
+    """The block's second half: x + MLP or MoE of rmsnorm(x, norm2)."""
+    if "wg" in p:
+        return x + mlp_apply(p, rmsnorm(x, p["norm2"], cfg.norm_eps,
+                                        backend), backend)
+    if "router" in p:
+        return x + moe_mod.moe_apply(
+            p, rmsnorm(x, p["norm2"], cfg.norm_eps, backend), cfg, backend)
+    return x
+
+
 def block_train(p, x, cfg, kind: str, positions, backend: str = "auto"):
     """-> (x, {"k", "v"}): the prefill cache contribution of the block."""
     require_ported(kind)
-    eps = cfg.norm_eps
-    h = rmsnorm(x, p["norm1"], eps, backend)
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps, backend)
     a, (k, v) = attn.attention_train(p, h, cfg, positions, backend)
-    x = x + a
-    if "wg" in p:
-        x = x + mlp_apply(p, rmsnorm(x, p["norm2"], eps, backend), backend)
-    return x, {"k": k, "v": v}
+    return _ffn(p, x + a, cfg, backend), {"k": k, "v": v}
 
 
 def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
@@ -137,13 +155,9 @@ def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
 def block_decode(p, x, cfg, kind: str, cache, pos, decode_mode: str = "tp",
                  backend: str = "auto"):
     require_ported(kind)
-    eps = cfg.norm_eps
-    h = rmsnorm(x, p["norm1"], eps, backend)
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps, backend)
     a, cache = attn.attention_decode(p, h, cfg, cache, pos, mode=decode_mode)
-    x = x + a
-    if "wg" in p:
-        x = x + mlp_apply(p, rmsnorm(x, p["norm2"], eps, backend), backend)
-    return x, cache
+    return _ffn(p, x + a, cfg, backend), cache
 
 
 def _save_dots(ctx, op, *args, **kwargs):

@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.models.model import jax_ranks
+
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "cosine_lr",
            "global_norm", "clip_by_global_norm"]
 
@@ -86,9 +88,12 @@ def adamw_update(params: dict[str, torch.Tensor],
     """One AdamW step, in place: each parameter, mu and nu is overwritten;
     returns the new state (its step one more).  Moments in f32; each
     parameter updated in its own dtype from the f32 update.  Weight decay
-    is decoupled and skipped for 1-D parameters (norms).  `grad_scale` (a
-    0-d tensor), when given, multiplies each f32 gradient first (the clip
-    of `clip_by_global_norm`, leaf by leaf)."""
+    is decoupled and skipped for the leaves that are 1-D as the JAX package
+    lays them out (`models.model.jax_ranks`): there a segment's per-layer
+    norms are rows of a stacked (L, D) leaf and decay, and final_norm does
+    not.  `grad_scale` (a 0-d tensor), when given, multiplies each f32
+    gradient first (the clip of `clip_by_global_norm`, leaf by leaf)."""
+    rank = jax_ranks(params)
     step = state.step + 1
     stepf = step.to(torch.float32)
     b1t = 1 - b1 ** stepf
@@ -100,8 +105,11 @@ def adamw_update(params: dict[str, torch.Tensor],
         m, v = state.mu[name], state.nu[name]
         m.copy_(b1 * m + (1 - b1) * gf)
         v.copy_(b2 * v + (1 - b2) * gf * gf)
-        delta = (m / b1t) / (torch.sqrt(v / b2t) + eps)
-        if p.dim() > 1 and weight_decay:
+        # the square root correctly rounded, as XLA's is (torch's f32 sqrt
+        # on the CPU can be an ulp off; on the card sqrtf is exact)
+        root = torch.sqrt((v / b2t).to(torch.float64)).to(torch.float32)
+        delta = (m / b1t) / (root + eps)
+        if rank[name] > 1 and weight_decay:
             delta = delta + weight_decay * p.to(torch.float32)
         p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
     return AdamWState(step=step, mu=state.mu, nu=state.nu)

@@ -81,4 +81,4 @@ def compressed_psum_with_feedback(grads, ef: EFState, axis: str):
     collective over several cards."""
     raise NotImplementedError(
         "compressed_psum_with_feedback is a collective over several cards: "
-        "it waits for the multi-card slice (ROADMAP.md queue 1, item 7)")
+        "it waits for the multi-card slice (ROADMAP.md queue 1: multi-card)")

@@ -27,6 +27,7 @@ from repro.serving import SnapshotStore as JStore  # noqa: E402
 
 from repro_torch.convert import pool_from_numpy  # noqa: E402
 from repro_torch.core import DPMeansTransaction, OCCEngine  # noqa: E402
+from repro_torch.obs import load_trace, validate_trace  # noqa: E402
 from repro_torch.examples import (  # noqa: E402
     crash_recovery, observability, quickstart, retrieval_index, serve_lm,
     streaming_clusters,
@@ -117,8 +118,21 @@ def test_crash_recovery_equals_jax():
     assert got["identical"] and "uninterrupted run: True" in out
 
 
-def test_observability_equals_jax(tmp_path):
+def _near_zero_clock(real):
+    """`real` moved to start at 0.  The JAX engine lays its synthesized
+    epoch spans at `ts0 + e * step`; on a monotonic clock of some hours
+    (1e10 us) that misses the next boundary by more than its validator's
+    1e-6 us, so the JAX example's own trace check then fails by the
+    machine's uptime alone."""
+    base = real()
+    return lambda: real() - base
+
+
+def test_observability_equals_jax(tmp_path, monkeypatch):
     got, _ = _port(observability, "--out-dir", str(tmp_path))
+    import repro.core.engine as jengine
+    monkeypatch.setattr(jengine, "_obs_now",
+                        _near_zero_clock(jengine._obs_now))
     out = _jax_out("observability")
     for name in ("engine_accepted", "engine_proposed", "wal_appends",
                  "wal_checkpoints", "engine_passes"):
@@ -129,6 +143,32 @@ def test_observability_equals_jax(tmp_path):
     cats = re.search(r"categories (\[.*\])", out)[1]
     assert cats == str(got["trace_categories"])
     assert (tmp_path / "trace.json").exists() and "ha" not in got
+
+
+@pytest.mark.parametrize("uptime_s", [0.0, 3.6e4, 1e7])
+def test_observability_trace_nests_at_any_clock(tmp_path, monkeypatch,
+                                                uptime_s):
+    """The port's synthesized epoch spans nest in their pass, and tile it,
+    whatever the monotonic clock reads (the machine's uptime)."""
+    import repro_torch.core.engine as tengine
+    real = _near_zero_clock(tengine._obs_now)
+    monkeypatch.setattr(tengine, "_obs_now", lambda: uptime_s + real())
+    got, text = _port(observability, "--out-dir", str(tmp_path))
+    trace = load_trace(str(tmp_path / "trace.json"))
+    assert validate_trace(trace) == []
+    ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+          and e["name"] in ("engine.pass", "engine.epoch")]
+    passes = [e for e in ev if e["name"] == "engine.pass"]
+    assert len(passes) == got["engine_passes"] > 0
+    for p in passes:
+        epochs = sorted((e for e in ev if e["name"] == "engine.epoch"
+                         and p["ts"] <= e["ts"] <= p["ts"] + p["dur"]),
+                        key=lambda e: e["ts"])
+        assert len(epochs) == p["args"]["epochs"] > 0
+        assert epochs[0]["ts"] == p["ts"]
+        for a, b in zip(epochs, epochs[1:]):
+            assert a["ts"] + a["dur"] == b["ts"]
+        assert epochs[-1]["ts"] + epochs[-1]["dur"] == p["ts"] + p["dur"]
 
 
 def test_serve_lm_equals_jax_counts():

@@ -8,7 +8,7 @@ over a loopback `DeltaChannel`, recovers it from a `DeltaWAL`, then builds
 `reduced(qwen3-4b)` on the CPU, serves two requests through the
 language model's `ServeEngine`, curates the embeddings of two token
 batches, takes one train step of that model (the optimizer and the train
-step), and imports the train-while-serve and training launchers and every
+step) and one of `reduced(olmoe-1b-7b)` (the MoE block), and imports the train-while-serve and training launchers and every
 example.
 """
 import ast
@@ -108,6 +108,11 @@ tc = TrainConfig(warmup_steps=1, total_steps=2)
 st = train_state_init({n: p.detach() for n, p in lm.named_parameters()}, tc)
 st, met = make_train_step(lm, tc)(st, TokenPipeline(cfg.vocab, 2, 8).batch_at(0))
 assert int(met["step"]) == 1 and bool(torch.isfinite(met["loss"]))
+moe_cfg = reduced(get_arch("olmoe-1b-7b")).replace(dtype="float32")
+moe_lm = build_model(moe_cfg, device="cpu").init(torch.Generator().manual_seed(0))
+st = train_state_init({n: p.detach() for n, p in moe_lm.named_parameters()}, tc)
+st, met = make_train_step(moe_lm, tc)(st, TokenPipeline(moe_cfg.vocab, 2, 8).batch_at(0))
+assert bool(torch.isfinite(met["loss"]))
 import repro_torch.optim
 from repro_torch.launch import serve_clusters, train
 from repro_torch.examples import (

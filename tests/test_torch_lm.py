@@ -4,12 +4,15 @@ CPU.
 Both packages run the same weights: the JAX model is initialised from a
 key, its parameter tree goes through numpy into a port `Model`
 (`convert.lm_params_from_numpy`), and the same numpy token ids go to both.
-At `reduced(qwen3-4b)` (qk_norm, untied head) and `reduced(granite-3-2b)`
-(tied embeddings) in f32, prefill logits and caches agree to 1e-4 (XLA
-and torch sum in different orders; RoPE's f32 powers differ by ulps, so
-decode is compared at every position from 0 to 40), the greedy tokens of
-the serving engines are identical, and the configurations equal the JAX
-package's field by field.  The port runs on the CPU here, where its
+At `reduced(qwen3-4b)` (qk_norm, untied head), `reduced(granite-3-2b)`
+(tied embeddings) and the two MoE configs, `reduced(olmoe-1b-7b)` and
+`reduced(phi3.5-moe-42b-a6.6b)` (GQA), in f32, prefill logits and caches
+agree to 1e-4 (XLA and torch sum in different orders; RoPE's f32 powers
+differ by ulps, so decode is compared at every position from 0 to 40),
+the greedy tokens of the serving engines are identical, and the
+configurations equal the JAX package's field by field; the full MoE
+configs count the JAX package's parameters on the "meta" device, with
+the router f32 in a bf16 model.  The port runs on the CPU here, where its
 `ops` take the plain versions of the kernels; `chip_smoke.py` drives the
 same path through the CUDA kernels on the card.
 """
@@ -37,7 +40,8 @@ from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.serving.engine import Request, ServeEngine  # noqa: E402
 
 ATOL = 1e-4
-LM_ARCHS = ["qwen3-4b", "granite-3-2b"]
+LM_ARCHS = ["qwen3-4b", "granite-3-2b", "olmoe-1b-7b",
+            "phi3.5-moe-42b-a6.6b"]
 
 
 def _pair(name, seed=0, **kw):
@@ -65,6 +69,36 @@ def test_param_count_full_qwen3_4b_on_meta():
     assert m.tok_embed.device.type == "meta"
     assert m.param_count() == jbuild(JARCHS["qwen3-4b"]).param_count()
     assert 4.3e9 < m.param_count() < 4.5e9
+
+
+@pytest.mark.parametrize("name,expect", [
+    ("olmoe-1b-7b", 6_919_096_320), ("phi3.5-moe-42b-a6.6b", 41_872_527_360)])
+def test_param_count_full_moe_on_meta(name, expect):
+    m = Model(get_arch(name), device="meta")
+    assert m.param_count() == jbuild(JARCHS[name]).param_count() == expect
+
+
+def test_moe_router_f32_in_a_bf16_model():
+    cfg = reduced(get_arch("olmoe-1b-7b"))
+    assert cfg.dtype == "bfloat16"
+    m = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    assert m.dtype == torch.bfloat16
+    for layer in m.segments["seg_00"]:
+        assert layer["router"].dtype == torch.float32
+        assert all(t.dtype == torch.bfloat16 for n, t in layer.items()
+                   if n != "router")
+    assert layer["we_g"].shape == (cfg.moe.n_experts, cfg.d_model, cfg.d_ff)
+    assert layer["we_d"].shape == (cfg.moe.n_experts, cfg.d_ff, cfg.d_model)
+    # the JAX package's tree fills it the same way
+    jm = jbuild(jreduced(JARCHS["olmoe-1b-7b"]))
+    tm = lm_params_from_numpy(
+        jax.tree.map(lambda a: np.asarray(a, np.float32),
+                     jm.init(jax.random.key(0))), cfg, device="cpu")
+    assert tm.segments["seg_00"][1]["router"].dtype == torch.float32
+    assert tm.segments["seg_00"][1]["wq"].dtype == torch.bfloat16
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
+    logits, _ = tm.prefill({"tokens": toks})
+    assert logits.dtype == torch.float32 and bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("impl", ["chunked", "flash"])
@@ -189,8 +223,8 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError):
         main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
               "--mesh", "single"])
-    for name in ("olmoe-1b-7b", "zamba2-7b", "xlstm-1.3b",
-                 "seamless-m4t-medium", "internvl2-2b"):
+    for name in ("zamba2-7b", "xlstm-1.3b", "seamless-m4t-medium",
+                 "internvl2-2b"):
         with pytest.raises(NotImplementedError):
             Model(reduced(get_arch(name)), device="cpu")
     cfg = reduced(get_arch("qwen3-4b")).replace(dtype="float32")

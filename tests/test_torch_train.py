@@ -9,8 +9,12 @@ from `TokenPipeline`, numpy-identical in both.  In f32 at reduced sizes:
     chunk) and its gradients within 1e-6 of the JAX function's;
   * `Model.loss` and every gradient against `jax.value_and_grad` of the
     JAX model's loss (reduced granite-3-2b, tied embeddings; reduced
-    qwen3-4b, qk_norm): loss relative 1e-5, each gradient leaf within
-    1e-4 of its largest magnitude;
+    qwen3-4b, qk_norm; the two reduced MoE configs): loss relative 1e-5,
+    each gradient leaf within 1e-4 of its largest magnitude;
+  * one `adamw_update` on the same numpy state and gradients (reduced
+    qwen3-4b, 2 layers and 1): every leaf within one f32 ulp of the JAX
+    package's, the per-layer norms included, which the JAX package decays
+    as rows of a stacked (L, D) leaf (and, at 1 layer, does not);
   * remat none / full / dots give the same bits inside the port;
   * five train steps from one `TrainState` (microbatches 1 and 4,
     error feedback on and off): `step` equal and `lr` within one f32 ulp
@@ -53,7 +57,8 @@ from repro.training.step import train_state_init as jstate_init  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import TrainConfig, get_arch, reduced  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
-    _to_jax_layout, lm_params_from_numpy, train_state_from_numpy,
+    _from_jax_layout, _to_jax_layout, lm_params_from_numpy,
+    train_state_from_numpy,
     train_state_to_numpy,
 )
 from repro_torch.data.tokens import TokenPipeline  # noqa: E402
@@ -65,7 +70,8 @@ from repro_torch.training import (  # noqa: E402
     make_train_step, param_groups, train_state_init,
 )
 
-LM_ARCHS = ["granite-3-2b", "qwen3-4b"]
+LM_ARCHS = ["granite-3-2b", "qwen3-4b", "olmoe-1b-7b",
+            "phi3.5-moe-42b-a6.6b"]
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 
@@ -268,6 +274,58 @@ def test_train_steps_match_jax(micro, compress):
     state, mets = _port_run(cfg, tc, state, pipe, 5)
     _assert_metrics(mets, jmets)
     _assert_states(state, jstate, compress)
+
+
+@pytest.mark.parametrize("n_layers", [2, 1])
+def test_adamw_update_matches_jax_leaf_by_leaf(n_layers):
+    """One update at lr 1e-2 from random moments and gradients: a skipped
+    or spurious decay moves a norm by lr * wd * 1 = 1e-3, a thousand ulps."""
+    jcfg, cfg = _cfgs("qwen3-4b", n_layers=n_layers)
+    assert cfg.qk_norm
+    params = jax.tree.map(np.asarray, jbuild(jcfg).init(jax.random.key(0)))
+    rng = np.random.default_rng(7)
+
+    def like(scale, positive=False):
+        def f(a):
+            r = scale * rng.normal(size=a.shape)
+            return (np.abs(r) if positive else r).astype(np.float32)
+        return jax.tree.map(f, params)
+    grads, mu, nu = like(1e-3), like(1e-3), like(1e-6, positive=True)
+    step = np.int32(3)
+    jp, jst = jadamw.adamw_update(
+        jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, grads),
+        jadamw.AdamWState(jnp.asarray(step), jax.tree.map(jnp.asarray, mu),
+                          jax.tree.map(jnp.asarray, nu)), 1e-2)
+    tm = lm_params_from_numpy(params, cfg, device="cpu")
+    tp = {n: p.detach().clone() for n, p in tm.named_parameters()}
+    tst = adamw.adamw_update(
+        tp, _from_jax_layout(grads, tp, "cpu"),
+        adamw.AdamWState(torch.tensor(step),
+                         _from_jax_layout(mu, tp, "cpu"),
+                         _from_jax_layout(nu, tp, "cpu")), 1e-2)
+    assert int(tst.step) == int(jst.step) == 4
+    for got, want in ((tp, jp), (tst.mu, jst.mu), (tst.nu, jst.nu)):
+        got, want = _leaves(_to_jax_layout(got)), _leaves(
+            jax.tree.map(np.asarray, want))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            ulp = np.spacing(np.abs(want[k]).astype(np.float32))
+            assert (np.abs(got[k] - want[k]) <= ulp).all(), k
+    # the JAX package decays the stacked norms, by lr * wd * p ~ 1e-3
+    # (a thousand ulps), and never final_norm nor a 1-layer segment's
+    jp0, _ = jadamw.adamw_update(
+        jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, grads),
+        jadamw.AdamWState(jnp.asarray(step), jax.tree.map(jnp.asarray, mu),
+                          jax.tree.map(jnp.asarray, nu)), 1e-2,
+        weight_decay=0.0)
+    with_wd, no_wd = _leaves(jax.tree.map(np.asarray, jp)), _leaves(
+        jax.tree.map(np.asarray, jp0))
+    norms = [k for k in with_wd if k.split("/")[-1] in
+             ("norm1", "norm2", "qn", "kn")]
+    assert len(norms) == 4
+    for k in norms + ["final_norm"]:
+        decay = float(np.abs(with_wd[k] - no_wd[k]).min())
+        assert (decay > 5e-4) == (n_layers > 1 and k != "final_norm"), k
 
 
 def test_compress_int8_bitwise_with_jax():
