@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,moe,serve_clusters,curation,examples]
+  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,moe,serve_clusters,curation,examples,hybrid,xlstm]
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
@@ -18,18 +18,23 @@ its crash-recoverable variant (a master killed and a follower promoted,
 the promoted master's WAL recovered) on the card against the fused
 single-process pass, serves the language model qwen3-4b (prefill and
 the slot engine's decode) at full width and depth, and trains granite-3-2b
-at full width and depth (four AdamW steps of 4 x 4096 tokens through the
-rmsnorm and swiglu kernels' forward and backward), and runs the
-Mixture-of-Experts model olmoe-1b-7b: its router and five dispatch impls
-at full width, served at full width and depth (a 4 x 4096 prefill and
-the slot engine's decode, the swiglu kernel on every layer's
-expert-grouped tensor) and trained at full width and 8 of its 16 layers,
+at full width and 16 of its 40 layers (four AdamW steps of 4 x 4096
+tokens through the rmsnorm and swiglu kernels' forward and backward), and
+runs the Mixture-of-Experts model olmoe-1b-7b: its router and five
+dispatch impls at full width, served at full width and depth (a 4 x 4096
+prefill and the slot engine's decode, the swiglu kernel on every layer's
+expert-grouped tensor) and trained at full width and 4 of its 16 layers,
 and phi3.5-moe at full width and 2 layers.  Then the system's
 remaining entry points: the train-while-serve pipeline (two tenants'
 trainer threads, sixteen client threads behind a coalescing router, a QoS
 A/B of priority lanes against FIFO, every response audited), OCC data
 curation of 2,048 sequences embedded by granite-3-2b at full width and
-depth, and each of the port's examples.  `--phases serve` or `examples`
+depth, and each of the port's examples.  Last, the recurrent families:
+the hybrid zamba2-7b (Mamba2 blocks and a shared attention block, flash
+at head dim 112) and xlstm-1.3b (mLSTM and sLSTM blocks), each at full
+width in f32 against the plain versions, served at full width and depth
+(a 4 x 4096 prefill and the slot engine's decode over recurrent state)
+and trained at full width and cut depth.  `--phases serve` or `examples`
 alone trains the retrieval index first; `--phases cluster`, `ha`,
 `serve_clusters` or `curation` alone builds the kernels first.
 
@@ -56,7 +61,7 @@ import time
 ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper", "ofl",
               "bp_means", "fig3", "retrieval", "serve", "invariants",
               "cluster", "ha", "lm_serve", "train", "moe", "serve_clusters",
-              "curation", "examples")
+              "curation", "examples", "hybrid", "xlstm")
 KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream",
            "flash_attention", "rmsnorm", "swiglu", "rmsnorm_bwd", "swiglu_bwd")
 SOURCES = ("dpmeans_assign", "topk_stream", "flash_attention", "rmsnorm",
@@ -71,13 +76,17 @@ PEAK_HBM_BYTES = 3.35e12
 DP_N = 2**20
 # OFL over it opens tens of thousands of facilities: the pool's capacity.
 OFL_K_MAX = 131_072
+# OFL streams the first OFL_N of those points (the whole 2^20 until the
+# hybrid and xlstm phases came in: 105 s of the script).
+OFL_N = 2**19
 # The paper's §4 feature data for BP-means.
 BP_N = 2**18
 # The multi-process cluster over the paper's §4 data, cut from 2^20 points
-# for time (64 epochs of Pb = 2048 over 4 worker processes); its chaos run
-# and the HA run take 2^15 points (16 epochs), the telemetry check's six
-# fused passes 2^14 (8 epochs).
-CLUSTER_N = 2**17
+# for time (32 epochs of Pb = 2048 over 4 worker processes; 2^17 points
+# until the hybrid and xlstm phases came in); its chaos run and the HA run
+# take 2^15 points (16 epochs), the telemetry check's six fused passes
+# 2^14 (8 epochs).
+CLUSTER_N = 2**16
 CLUSTER_SMALL_N = 2**15
 TELEMETRY_N = 2**14
 # The reference's limit on telemetry's cost (benchmarks/occ_engine.py,
@@ -117,10 +126,14 @@ LOGIT_TOL = 1e-4
 # through all 36 layers; a wrong layer, stride or cache position moves the
 # logits by their own scale.
 BF16_LOGIT_TOL = 0.05
-# The full-depth engine run: 8 requests of prompt 64 on 4 slots, each to
-# this many new tokens, so that the decode-tick percentiles rest on 256
-# ticks (cut from 256 new tokens, 512 ticks, when the moe phase came in).
-SERVE_MAX_NEW = 128
+# The full-depth engine run: 8 requests of prompt SERVE_PROMPT on 4 slots,
+# each to this many new tokens, so that the decode-tick percentiles rest
+# on 128 ticks (cut from 256 new tokens when the moe phase came in, and
+# from 128 when the hybrid and xlstm phases came in, with the prompt from
+# 64: the engine prefills a prompt token by token, 512 of its 640 decode
+# calls).
+SERVE_MAX_NEW = 64
+SERVE_PROMPT = 32
 # The train-while-serve pipeline: points streamed per tenant (the paper's
 # Pb = 2048, 32 epochs each) and the QoS A/B tenant's stream.
 SC_N = 2**16
@@ -133,15 +146,18 @@ CUR_BATCH = 16
 CUR_SEQ = 256
 CUR_PB = 256
 CUR_K_MAX = 512
-# Training granite-3-2b at full width and depth: SHAPES["train_4k"]'s
-# sequence, its global batch of 256 cut to 4 for one card; four steps, the
-# first two held against a run on the plain versions from the same state
-# (cut from six and three when the moe phase came in).
+# Training granite-3-2b at full width and TRAIN_LAYERS of its 40 layers
+# (cut from full depth when the hybrid and xlstm phases came in; at 20
+# layers the phase took 54 s on an H100 80GB HBM3 at 700 W):
+# SHAPES["train_4k"]'s sequence, its global batch of 256 cut to 4 for one
+# card; four steps, the first two held against a run on the plain versions
+# from the same state (cut from six and three when the moe phase came in).
+TRAIN_LAYERS = 16
 TRAIN_BATCH = 4
 TRAIN_SEQ = 4096
 TRAIN_STEPS = 4
 TRAIN_PLAIN_STEPS = 2
-# bf16 at 40 layers: loss and grad norm of the kernels' run against the
+# bf16 at 16 layers: loss and grad norm of the kernels' run against the
 # plain versions' within these fractions.  The two runs round the
 # activations and the gradients to bf16 at other points (the kernels round
 # each rmsnorm and swiglu output and gradient once from f32; autograd of the
@@ -184,9 +200,10 @@ MOE_TIE_MARGIN = 1e-6
 # reference's design.
 MOE_BF16_LOGIT_TOL = 0.1
 MOE_PREFILL_BATCH = 4
-MOE_SERVE_MAX_NEW = 64
+MOE_SERVE_MAX_NEW = 32     # cut from 64 when the hybrid phase came in
 # Training olmoe at full width and MOE_TRAIN_LAYERS of its 16 layers (its
-# 12 bytes a parameter at full depth, 83 GB, exceed the card): bf16,
+# 12 bytes a parameter at full depth, 83 GB, exceed the card; cut from 8
+# to 4 when the hybrid and xlstm phases came in): bf16,
 # remat "full", chunked attention, as the config sets them; MOE_TRAIN_STEPS
 # AdamW steps of MOE_TRAIN_BATCH x TRAIN_SEQ tokens, the first
 # MOE_TRAIN_PLAIN_STEPS against the plain versions.  The batch is cut from
@@ -194,10 +211,103 @@ MOE_SERVE_MAX_NEW = 64
 # layer's recompute of the capacity dispatch, whose k-loop keeps eight
 # (4, 4096, 64, 640) f32 one-hots, and its backward's transients) passes
 # 75 GB.
-MOE_TRAIN_LAYERS = 8
+MOE_TRAIN_LAYERS = 4
 MOE_TRAIN_BATCH = 2
 MOE_TRAIN_STEPS = 4
 MOE_TRAIN_PLAIN_STEPS = 2
+# The recurrent families (the hybrid and xlstm phases), widths never cut:
+# zamba2-7b (81 layers: 13 x (6 Mamba2 layers + the shared attention and
+# MLP block) + 3 Mamba2 layers; d 3584, 32/32 heads of 112, d_ff 14336,
+# vocab 32000; Mamba2 d_inner 7168, 112 heads of 64, state 64, conv 4;
+# chunk 256) and xlstm-1.3b (48 layers: 6 x (7 mLSTM + 1 sLSTM); d 2048, 4
+# heads of 512, d_ff 0, vocab 50304).  (a) Full width, f32, REC_F32_LAYERS
+# layers (zamba2: one segment of six Mamba2 layers and one use of the
+# shared block; xlstm: seven mLSTM and one sLSTM), a 1 x REC_F32_SEQ
+# prefill (two chunks of 256): logits with the kernels against the plain
+# versions within LOGIT_TOL, then the loss and every gradient in f32.
+REC_F32_LAYERS = {"hybrid": 6, "xlstm": 8}
+REC_F32_SEQ = 512
+# Then decode_step after prefill(64) against prefill(65), in f32, within
+# LOGIT_TOL's reasoning at the reference's own bar for it (2e-3 of
+# max(1, max |logit|), `tests/test_models_smoke.py`): the chunked and the
+# recurrent forms sum in other orders.
+REC_F32_DECODE_TOL = 2e-3
+# The f32 gradients with the kernels against the plain versions, each
+# within this fraction of its largest magnitude (TRAIN_F32_GRAD_TOL is
+# 1e-4).  The two routes differ only in the rmsnorm kernels' summation
+# order (and zamba2's attention), a few f32 ulps, and these blocks amplify
+# that on the way back.  zamba2: its Mamba2 scans (exp and cumsum chains,
+# gated norms); on the CPU the JAX package's own gradients of reduced
+# zamba2-7b move by 7.7e-5 of a leaf's largest magnitude between chunks of
+# 16 and 64, the same function summed in another order
+# (`tests/test_torch_ssm.py`).  xlstm: the mLSTM divides by max(|n.q|,
+# exp(-m)), where n.q sums 512 terms of either sign, so its gradient with
+# respect to q carries 1 / (n.q)^2: the first layer's wq moved by 1.9e-4
+# of its largest magnitude (on an H100 80GB HBM3 at 700 W).
+REC_F32_GRAD_TOL = {"hybrid": 1e-3, "xlstm": 1e-3}
+# (b) Full depth, bf16, flash attention: a 4 x TRAIN_SEQ prefill, then 4
+# requests of prompt 64 and REC_SERVE_MAX_NEW new tokens on 4 slots.
+# Last-token logits of two routes (kernels against plain versions;
+# decode_step after a prefill against one longer prefill) agree within
+# the larger of REC_BF16_LOGIT_TOL of max |logit| and the reference's own
+# bf16 error there: the same logits' distance from an f32 run of the
+# plain versions on the same weights (widened, exact), measured in the
+# same call.  At random init neither family's bf16 arithmetic holds at
+# depth: a difference of one bf16 ulp in a norm's output grows through
+# each segment, to the logits' own scale (last-token logits of 4 x 4096,
+# kernels against plain: zamba2 4.37 at a scale of 4.44, the plain bf16
+# route against f32 5.18; xlstm 4.69 at 4.81, against 5.01, on an H100
+# 80GB HBM3 at 700 W), so no fixed fraction of the logits separates a
+# wrong kernel from the reference's own rounding.  Where the bf16 run
+# holds, the fixed bars do: qwen3-4b's 0.05 (BF16_LOGIT_TOL's reasoning)
+# for xlstm, f32 inside every block, whose routes differ in rmsnorm's
+# rounding; 0.1 for zamba2, whose routes also differ in the 13 uses of the
+# shared attention (flash rounds P to bf16).  The kernels' own bars are
+# (a)'s f32 ones and `lm_kernels`'.
+REC_BF16_LOGIT_TOL = {"hybrid": 0.1, "xlstm": BF16_LOGIT_TOL}
+# At full depth the three runs are about equally far apart (kernels vs
+# plain 0.84 and 0.94 of plain vs f32 at the logits, on the same card),
+# so the bar is REC_FLOOR_MUL times the floor, for another input's spread;
+# it says only that the kernels add no error beyond the order of the
+# reference's own bf16 error.  The tight bf16 bar is where the bf16 run
+# still holds: the residual stream after the first segment (zamba2's six
+# Mamba2 layers, xlstm's seven mLSTM layers), the two routes within
+# REC_SEG0_TOL relative L2 (zamba2 0.69 % and xlstm 1.67 %, against 8.2 %
+# and 15 % for plain bf16 vs f32, on the same card).
+REC_FLOOR_MUL = 1.5
+REC_SEG0_TOL = 0.05
+# Those two routes and the f32 run take a REC_COMPARE (B, S) batch, not the
+# timed 4 x 4096 prefill: three more full-depth prefills of that size cost
+# 21 s in xlstm, whose sLSTM steps the host dispatches one by one.
+REC_COMPARE = (2, 1024)
+# xlstm's profiled prefill: 4 x this many tokens (its 4 x 4096 prefill
+# takes 8.8 s under the profiler, a quarter of them the same work).
+REC_PROFILE_XLSTM = 1024
+REC_SERVE_MAX_NEW = 64
+# (c) Training at full width: zamba2 at REC_TRAIN_LAYERS layers (12 bytes
+# a parameter: 81 GB at 81 layers; 12 layers are two segments of six and
+# two uses of the shared block, 16.4 GB), xlstm at 8 (one segment of each
+# kind); bf16, remat "full", chunked attention, chunk 256, as the configs
+# set them: REC_TRAIN_STEPS AdamW steps of REC_TRAIN_BATCH x seq tokens,
+# the first REC_TRAIN_PLAIN_STEPS against the plain versions, held to
+# TRAIN_LOSS_TOL and TRAIN_GNORM_TOL.  xlstm's sequence is cut to
+# REC_TRAIN_SEQ["xlstm"]: autograd records its sLSTM's loop of one step a
+# token, about 30 ops a step, twice (remat), and differentiates it, all
+# dispatched from the host (a step of 4 x 2048 took 6.2 s, 91 % of it
+# idle; 4 x 1024 4.4 s, 92 % idle; on an H100 80GB HBM3 at 700 W).
+REC_TRAIN_LAYERS = {"hybrid": 12, "xlstm": 8}
+REC_TRAIN_BATCH = 4
+REC_TRAIN_SEQ = {"hybrid": 4096, "xlstm": 1024}
+REC_TRAIN_STEPS = 4
+REC_TRAIN_PLAIN_STEPS = 2
+# The grad norm's bar against the plain run: TRAIN_GNORM_TOL, but 0.1 for
+# xlstm.  Its mLSTM's gradients carry 1 / (n.q)^2 (REC_F32_GRAD_TOL's
+# comment), so in bf16 the two routes' one-ulp differences in the norms
+# move the grad norm by percents, more once an AdamW step has carried them
+# into the weights: 1.2 % and 1.4 % at steps 1 and 2 of 4 x 2048, 5.0 %
+# at step 2 of 4 x 1024, the loss within 2.3e-4 throughout, on an H100
+# 80GB HBM3 at 700 W; at random init its grad norm is 70.
+REC_TRAIN_GNORM_TOL = {"hybrid": TRAIN_GNORM_TOL, "xlstm": 0.1}
 
 
 def emit(obj) -> None:
@@ -1024,14 +1134,14 @@ class Smoke:
 
     # --------------------------------------------------------------- ofl
     def ofl(self):
-        """OCC OFL online over the paper's data: `partial_fit` in 16
-        batches of 65,536 points and a `flush`, adaptive cap, the propose
+        """OCC OFL online over the paper's data, its first OFL_N points:
+        `partial_fit` in 16 batches and a `flush`, adaptive cap, the propose
         phase on `dpmeans_assign`; then the port's OFL invariants on the
         card over the first `OFL_INV_N` points."""
         torch = self.torch
         from repro_torch.core import OCCEngine, OFLTransaction
         from repro_torch.kernels import ops
-        x = torch.as_tensor(self._dp_data(), device=self.dev)
+        x = torch.as_tensor(self._dp_data()[:OFL_N], device=self.dev)
         key = (0, self.seed)
         eng = OCCEngine(OFLTransaction(4.0, OFL_K_MAX, key), pb=2048,
                         validate_cap="adaptive", device="cuda")
@@ -2172,13 +2282,23 @@ class Smoke:
                 self._lm_agree("flash_attention", f"{tag} strided Dh64",
                                flash_attention(q, k, v, scale=0.2),
                                ref.flash_attention_ref(q, k, v, scale=0.2))
+                # zamba2-7b's Dh 112 (the tensor-core kernel runs the
+                # Dh-128 tile on TMA's zero fill), its (B, S, H, Dh) views
+                for causal in (True, False):
+                    q, k, v = (randn((2, 384, 8, 112), dt).transpose(1, 2)
+                               for _ in range(3))
+                    self._lm_agree("flash_attention",
+                                   f"{tag} Dh112 S384 causal={causal}",
+                                   flash_attention(q, k, v, causal=causal),
+                                   ref.flash_attention_ref(q, k, v, causal))
                 for shape in ((16384, 2560), (4, 2560), (2, 3, 2560),
-                              (7, 33)):
+                              (16384, 3584), (7, 33)):
                     x, w = randn(shape, dt), randn(shape[-1:], dt)
                     self._lm_agree("rmsnorm", f"{tag} {shape}",
                                    rmsnorm(x, w, 1e-6),
                                    ref.rmsnorm_ref(x, w, 1e-6))
-                for shape in ((16384, 9728), (4, 9728), (5, 17)):
+                for shape in ((16384, 9728), (4, 9728), (16384, 14336),
+                              (5, 17)):
                     a, u = randn(shape, dt, 3.0), randn(shape, dt)
                     self._lm_agree("swiglu", f"{tag} {shape}", swiglu(a, u),
                                    ref.swiglu_ref(a, u))
@@ -2489,6 +2609,52 @@ class Smoke:
                     lambda: ref.swiglu_ref(a, u), flops=5.0 * a.numel(),
                     nbytes=2.0 * 3 * a.numel(), gate=list(a.shape),
                     dtype="bfloat16")
+            del x, w, a, u
+            torch.cuda.empty_cache()
+            # zamba2-7b's prefill shapes: its shared attention (4, 32/32,
+            # 4096, 112), its d_model 3584 and its d_ff 14336
+            b, h, s, dh = 4, 32, 4096, 112
+            q, k, v = (randn((b, s, h, dh), bf16).transpose(1, 2)
+                       for _ in range(3))
+            case = f"bf16 zamba2 prefill {list(q.shape)} transposed views"
+            got, want = flash_attention(q, k, v), ref.flash_attention_ref(
+                q, k, v)
+            self._lm_agree("flash_attention", case, got, want)
+            emit({"phase": "lm_kernels", "kernel": "flash_attention",
+                  **self._flash_tight(case, q, k, v, True, got, want)})
+            del got, want
+            torch.cuda.empty_cache()
+            flops = 2.0 * s * s * dh * b * h     # both products, causal half
+            self._time_kernel(
+                "flash_attention", "zamba2_prefill",
+                lambda: flash_attention(q, k, v),
+                lambda: ref.flash_attention_ref(q, k, v),
+                flops=flops, nbytes=2.0 * 4 * q.numel(),
+                peak_flops=PEAK_BF16_FLOPS,
+                library=lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True),
+                q=list(q.shape), kv=list(k.shape), dtype="bfloat16",
+                causal=True, sdpa=self._sdpa_backends(q, k, v),
+                kernel_design="the Dh-128 tile on TMA's zero fill (P V "
+                              "n128: 14 % more tensor-core work)")
+            del q, k, v
+            torch.cuda.empty_cache()
+            x, w = randn((16384, 3584), bf16), randn((3584,), bf16)
+            self._time_kernel(
+                "rmsnorm", "zamba2_prefill", lambda: rmsnorm(x, w, 1e-6),
+                lambda: ref.rmsnorm_ref(x, w, 1e-6), flops=4.0 * x.numel(),
+                nbytes=2.0 * (2 * x.numel() + w.numel()),
+                library=lambda: F.rms_norm(x, (3584,), w, 1e-6),
+                x=list(x.shape), dtype="bfloat16", kernel_design="one read")
+            a, u = randn((16384, 14336), bf16, 3.0), randn((16384, 14336),
+                                                         bf16)
+            self._time_kernel(
+                "swiglu", "zamba2_prefill", lambda: swiglu(a, u),
+                lambda: ref.swiglu_ref(a, u), flops=5.0 * a.numel(),
+                nbytes=2.0 * 3 * a.numel(), gate=list(a.shape),
+                dtype="bfloat16")
+            del x, w, a, u
+            torch.cuda.empty_cache()
 
     def _sdpa_backends(self, q, k, v) -> dict:
         """The SDPA yardstick named: the backend PyTorch's dispatcher picks
@@ -2545,8 +2711,8 @@ class Smoke:
             return (torch.randn(shape, generator=g, device=self.dev)
                     * mul).to(dt)
         for dt in (f32, bf16, f16):
-            for shape in ((16384, 2048), (16384, 2560), (4, 2560),
-                          (2, 3, 2048), (7, 33), (333, 1000)):
+            for shape in ((16384, 2048), (16384, 2560), (16384, 3584),
+                          (4, 2560), (2, 3, 2048), (7, 33), (333, 1000)):
                 x, dy = randn(shape, dt), randn(shape, dt)
                 w = randn(shape[-1:], dt)
                 dx, dw = rmsnorm_bwd(x, w, dy, 1e-6)
@@ -2554,7 +2720,8 @@ class Smoke:
                 self._lm_agree("rmsnorm_bwd", f"{tags[dt]} {shape} dx", dx, px)
                 self._lm_agree("rmsnorm_bwd", f"{tags[dt]} {shape} dw", dw, pw)
         for dt in (f32, bf16):
-            for shape in ((16384, 8192), (16384, 9728), (4, 9728), (5, 17)):
+            for shape in ((16384, 8192), (16384, 9728), (16384, 14336),
+                          (4, 9728), (5, 17)):
                 a, u, dy = randn(shape, dt, 3.0), randn(shape, dt), \
                     randn(shape, dt)
                 dg, du = swiglu_bwd(a, u, dy)
@@ -2612,7 +2779,8 @@ class Smoke:
         torch.cuda.empty_cache()
         # times: granite-3-2b's training shape is the main one
         for dt in (bf16, f32, f16):
-            for d in (2048, 2560):
+            # zamba2-7b's d_model 3584 in bf16
+            for d in (2048, 2560) + ((3584,) if dt == bf16 else ()):
                 x, dy = randn((16384, d), dt), randn((16384, d), dt)
                 w = randn((d,), dt)
                 xg = x.clone().requires_grad_(True)
@@ -2632,7 +2800,8 @@ class Smoke:
                                  "(its forward included)")
                 del x, dy, w, xg, wg
         for dt in (bf16, f32):
-            for dff in (8192, 9728):
+            # zamba2-7b's d_ff 14336 in bf16
+            for dff in (8192, 9728) + ((14336,) if dt == bf16 else ()):
                 a, u, dy = (randn((16384, dff), dt, 3.0),
                             randn((16384, dff), dt), randn((16384, dff), dt))
                 main = dt == bf16 and dff == 8192
@@ -2669,10 +2838,10 @@ class Smoke:
         """qwen3-4b served by the port: at full width and 2 layers in f32,
         the kernels against the plain versions (prefill logits, and greedy
         tokens of a ServeEngine run); at full width and depth in bf16,
-        prefill (B 4, S 4096) and a ServeEngine run (8 requests, prompt 64,
-        SERVE_MAX_NEW new tokens each, 4 slots, cache 1024) with exact
-        launch counts, their times and the device's idle share over a warm
-        decode step; then its last-token logits against the plain versions'
+        prefill (B 4, S 4096) and a ServeEngine run (8 requests, prompt
+        SERVE_PROMPT, SERVE_MAX_NEW new tokens each, 4 slots, cache 1024)
+        with exact launch counts, their times and the device's idle share
+        over a warm decode step; then its last-token logits against the plain versions'
         and decode_step's against prefill's."""
         torch = self.torch
         import numpy as np
@@ -2773,7 +2942,7 @@ class Smoke:
         self.lm_launches["prefill"] = pre
         # the main path, serving: counts from 0 just before, read just after
         eng = ServeEngine(model, n_slots=4, cache_len=1024)
-        reqs = [Request(uid=i, prompt=rng.integers(0, vocab, 64),
+        reqs = [Request(uid=i, prompt=rng.integers(0, vocab, SERVE_PROMPT),
                         max_new=SERVE_MAX_NEW) for i in range(8)]
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -2797,7 +2966,8 @@ class Smoke:
         steps = eng.step_seconds
         new = sum(len(r.out) for r in done)
         res["serve"] = {
-            "requests": 8, "prompt": 64, "max_new": SERVE_MAX_NEW, "slots": 4,
+            "requests": 8, "prompt": SERVE_PROMPT, "max_new": SERVE_MAX_NEW,
+            "slots": 4,
             "cache_len": 1024, "seconds": run_s, "decode_calls": n,
             "ticks": len(steps), "new_tokens": new,
             "decode_steps_per_s": len(steps) / sum(steps),
@@ -2878,9 +3048,9 @@ class Smoke:
 
     # ------------------------------------------------------------- train
     def train(self):
-        """granite-3-2b trained by the port at full width and depth (40
-        layers, d 2048, 32/8 heads of 64, d_ff 8192, vocab 49155, tied
-        embeddings; bf16, remat "full", chunked attention): TRAIN_STEPS
+        """granite-3-2b trained by the port at full width and TRAIN_LAYERS
+        of its 40 layers (d 2048, 32/8 heads of 64, d_ff 8192, vocab 49155,
+        tied embeddings; bf16, remat "full", chunked attention): TRAIN_STEPS
         `make_train_step` steps of TRAIN_BATCH x TRAIN_SEQ tokens from
         `TokenPipeline` with exact launch counts for a step, every loss
         finite, the first TRAIN_PLAIN_STEPS steps' loss and grad norm
@@ -2899,6 +3069,7 @@ class Smoke:
               and cfg.dtype == "bfloat16" and cfg.remat == "full"
               and cfg.attn_impl == "chunked" and cfg.tie_embeddings,
               "train: granite-3-2b's configuration")
+        cfg = cfg.replace(n_layers=TRAIN_LAYERS)
         tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
                            total_steps=TRAIN_STEPS)
         pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
@@ -3519,7 +3690,7 @@ class Smoke:
             "tok_embed", "segments.seg_00.0.we_g",
             "segments.seg_00.0.router")}
         n_params = sum(p.numel() for p in params.values())
-        check(n_params == 3_562_571_776,
+        check(n_params == 1_884_309_504,
               f"moe train: {n_params} parameters at {n} layers")
         state = train_state_init(params, tcfg)
         step = make_train_step(model, tcfg)
@@ -4163,6 +4334,508 @@ class Smoke:
               "train_lm": tr,
               "card_eq_cpu": sorted(cpu)})
 
+    # ------------------------------------------------- recurrent families
+    def hybrid(self):
+        """The hybrid family on the card (`models/ssm.py`, the shared block
+        of `models/model.py`): zamba2-7b at full width, f32, 6 layers with
+        the kernels against the plain versions (logits of a 1 x 512
+        prefill, two chunks of 256, with flash at Dh 112; then the loss and
+        every gradient); at full width and depth in bf16 (a 4 x 4096
+        prefill with flash, 13 / 108 / 13 launches; its logits against the
+        plain versions'; decode_step against a longer prefill; a
+        ServeEngine run); trained at full width and REC_TRAIN_LAYERS
+        layers.  The launches of the served and trained runs count as the
+        path's."""
+        from repro_torch.configs import get_arch
+        self._ensure_built()
+        base = get_arch("zamba2-7b")
+        check(base.n_layers == 81 and base.d_model == 3584
+              and base.n_heads == base.n_kv_heads == 32 and base.hd == 112
+              and base.d_ff == 14336 and base.vocab == 32000
+              and base.ssm_state == 64 and base.ssm_head_dim == 64
+              and base.ssm_expand == 2 and base.conv_width == 4
+              and base.attn_every == 6 and base.ssm_chunk == 256
+              and not base.tie_embeddings and base.dtype == "bfloat16"
+              and base.remat == "full" and base.attn_impl == "chunked",
+              "hybrid: zamba2-7b's configuration")
+        check(self._per_call(base) == ({"flash_attention": 13,
+                                        "rmsnorm": 108, "swiglu": 13},
+                                       {"flash_attention": 0,
+                                        "rmsnorm": 108, "swiglu": 13}),
+              "hybrid: 13 flash, 108 rmsnorm, 13 swiglu a prefill")
+        self._recurrent("hybrid", base, 6_750_498_384, self.seed + 700)
+
+    def xlstm(self):
+        """The xLSTM family on the card (`models/xlstm.py`): xlstm-1.3b at
+        full width, f32, 8 layers (7 mLSTM, 1 sLSTM) with the kernels
+        against the plain versions (logits, then the loss and every
+        gradient); at full width and depth in bf16 (a 4 x 4096 prefill,
+        49 rmsnorm launches; its logits against the plain versions';
+        decode_step against a longer prefill; a ServeEngine run); trained
+        at full width and 8 layers.  Its sLSTM runs one step a token from
+        the host: the prefill's 6 sLSTM layers are 24,576 steps."""
+        from repro_torch.configs import get_arch
+        self._ensure_built()
+        base = get_arch("xlstm-1.3b")
+        check(base.n_layers == 48 and base.d_model == 2048
+              and base.n_heads == 4 and base.hd == 512 and base.d_ff == 0
+              and base.vocab == 50304 and base.slstm_every == 8
+              and base.ssm_chunk == 256 and base.dtype == "bfloat16"
+              and base.remat == "full", "xlstm: xlstm-1.3b's configuration")
+        check(self._per_call(base)[0] == {"flash_attention": 0,
+                                          "rmsnorm": 49, "swiglu": 0},
+              "xlstm: 49 rmsnorm a prefill")
+        self._recurrent("xlstm", base, 1_175_840_768, self.seed + 800)
+
+    def _per_call(self, cfg) -> tuple[dict, dict]:
+        """The language-model kernels' launches of one prefill (flash
+        attention) and of one decode_step, from the segments: a norm a
+        recurrent block, two (and a swiglu) an attention block with an MLP,
+        and the final norm."""
+        from repro_torch.models.transformer import segments_for
+        norms = attn = 0
+        for kind, count, _ in segments_for(cfg):
+            if kind in ("mamba", "mlstm", "slstm"):
+                norms += count
+            else:
+                attn += count
+                norms += count * (2 if cfg.d_ff else 1)
+        ffn = attn if cfg.d_ff else 0
+        return ({"flash_attention": attn, "rmsnorm": norms + 1,
+                 "swiglu": ffn},
+                {"flash_attention": 0, "rmsnorm": norms + 1, "swiglu": ffn})
+
+    def _recurrent(self, phase, base, n_params, seed):
+        launches = dict.fromkeys(("flash_attention", "rmsnorm", "swiglu",
+                                  "rmsnorm_bwd", "swiglu_bwd"), 0)
+        res = {}
+        t0 = time.perf_counter()
+        res["f32"] = self._rec_f32(phase, base, seed + 1)
+        res["f32"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["serve"] = self._rec_serve(phase, base, n_params, launches,
+                                       seed + 2)
+        res["serve"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with self._no_plain_backward(phase):
+            res["train"] = self._rec_train(phase, base, launches, seed + 3)
+        res["train"]["seconds"] = time.perf_counter() - t0
+        res["launches"] = launches
+        self.path_launches[phase] = launches
+        emit({"phase": phase, "arch": base.name, "card": self.card, **res})
+
+    def _rec_f32(self, phase, base, seed) -> dict:
+        """Full width, REC_F32_LAYERS layers, f32: a 1 x REC_F32_SEQ
+        prefill with the kernels (exact launches; flash for the attention)
+        against the plain versions (chunked attention), within LOGIT_TOL;
+        then the loss and every gradient of one batch of that shape
+        against the plain versions'."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.data.tokens import TokenPipeline
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model
+        from repro_torch.training import loss_and_grads
+        cfg = base.replace(n_layers=REC_F32_LAYERS[phase], dtype="float32",
+                           attn_impl="flash")
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(seed))
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                     (1, REC_F32_SEQ))
+        ops.reset_launch_counts()
+        lk, _ = model.prefill({"tokens": toks})
+        counts = self._moe_counts()
+        want = dict(self._per_call(cfg)[0], rmsnorm_bwd=0, swiglu_bwd=0)
+        model.backend, model.cfg = "plain", cfg.replace(attn_impl="chunked")
+        lp, _ = model.prefill({"tokens": toks})
+        check(counts == want and self._moe_counts() == counts,
+              f"{phase} f32: prefill launches {counts}, expected {want}, "
+              "none for the plain one")
+        err = float((lk - lp).abs().max())
+        tol = LOGIT_TOL * max(1.0, float(lp.abs().max()))
+        check(bool(torch.isfinite(lk).all()) and lk.shape == (1, cfg.vocab)
+              and err <= tol,
+              f"{phase} f32: prefill logits kernels vs plain {err} > {tol}")
+        model.backend, model.cfg = "auto", cfg
+        ld, l65 = self._decode_vs_prefill(model, toks[:, :65])
+        derr = float((ld - l65).abs().max())
+        dtol = REC_F32_DECODE_TOL * max(1.0, float(l65.abs().max()))
+        check(derr <= dtol, f"{phase} f32: decode_step after prefill(64) vs "
+              f"prefill(65) {derr} > {dtol}")
+        # the loss and every gradient (chunked attention, as training runs)
+        model.backend, model.cfg = "auto", cfg.replace(attn_impl="chunked")
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        batch = TokenPipeline(cfg.vocab, 1, REC_F32_SEQ,
+                              seed=seed).batch_at(0)
+        gl, gk = loss_and_grads(model, params, batch)
+        pl, gp = loss_and_grads(
+            build_model(model.cfg, device="meta", backend="plain"), params,
+            batch)
+        loss_rel = abs(float(gl) - float(pl)) / abs(float(pl))
+        worst, worst_name = 0.0, ""
+        for k in gp:
+            scale = float(gp[k].abs().max())
+            r = float((gk[k] - gp[k]).abs().max()) / max(scale, 1e-30)
+            check(bool(torch.isfinite(gk[k]).all()),
+                  f"{phase} f32: gradient {k} not finite")
+            if r > worst:
+                worst, worst_name = r, k
+        check(math.isfinite(float(gl)) and loss_rel <= TRAIN_F32_LOSS_RTOL
+              and worst <= REC_F32_GRAD_TOL[phase],
+              f"{phase} f32: loss rel {loss_rel}, worst gradient "
+              f"{worst_name} {worst} of its max abs")
+        del model, params, gk, gp
+        torch.cuda.empty_cache()
+        return {"layers": cfg.n_layers, "seq": REC_F32_SEQ,
+                "launches": counts, "prefill_logit_max_abs_err": err,
+                "tol": tol, "decode_vs_prefill_max_abs_err": derr,
+                "decode_tol": dtol, "loss": float(gl), "loss_rel": loss_rel,
+                "worst_grad_err_over_max": worst, "worst_grad": worst_name,
+                "grad_tol": {"loss_rel": TRAIN_F32_LOSS_RTOL,
+                             "grad": REC_F32_GRAD_TOL[phase]}}
+
+    def _rec_serve(self, phase, base, n_params, launches, seed) -> dict:
+        """Full width and depth, bf16, flash attention, random weights from
+        the seed: a 4 x TRAIN_SEQ prefill (exact launches, caches, seconds,
+        tokens/s, a profiled repeat); its last-token logits against the
+        plain versions'; a ServeEngine run of 4 requests (prompt 64,
+        REC_SERVE_MAX_NEW new tokens, 4 slots) with exact launches, step
+        p50 / p99, the idle share of a warm step and the peak memory;
+        decode_step after prefill(64) against prefill(65)."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model
+        from repro_torch.models.transformer import segments_for
+        from repro_torch.serving.engine import Request, ServeEngine
+        from torch.profiler import ProfilerActivity, profile
+        cfg = base.replace(attn_impl="flash")
+        vocab = cfg.vocab
+        per_prefill, per_step = self._per_call(cfg)
+        zero_bwd = {"rmsnorm_bwd": 0, "swiglu_bwd": 0}
+        rng = np.random.default_rng(seed)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        res = {"init_s": time.perf_counter() - t0,
+               "params": model.param_count()}
+        f32 = {name.rsplit(".", 1)[-1] for name, p in
+               model.named_parameters() if p.dtype == torch.float32}
+        check(res["params"] == n_params and model.dtype == torch.bfloat16
+              and f32 == ({"a_log", "dt_bias", "d_skip"}
+                          if phase == "hybrid" else set()),
+              f"{phase}: {res['params']} parameters, f32 leaves {f32}")
+        b, s = 4, TRAIN_SEQ
+        toks = rng.integers(0, vocab, (b, s))
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, prefill: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill({"tokens": toks})
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        pre = self._moe_counts()
+        one_read = ops.RMSNORM_ONE_READ_LAUNCHES
+        check(pre == dict(per_prefill, **zero_bwd)
+              and one_read == pre["rmsnorm"],
+              f"{phase}: prefill launches {pre} ({one_read} rmsnorm on the "
+              f"one-read kernel), expected {per_prefill}, all one-read")
+        segs = segments_for(cfg)
+        check(logits.shape == (b, vocab) and bool(torch.isfinite(logits).all())
+              and sorted(caches) == [f"seg_{i:02d}" for i in range(len(segs))]
+              and all(len(caches[f"seg_{i:02d}"]) == count
+                      for i, (_, count, _) in enumerate(segs)),
+              f"{phase}: prefill logits finite, a cache a layer")
+        shapes = {f"{kind}.{k}": list(v.shape) for (kind, _, _), key in
+                  zip(segs, sorted(caches))
+                  for k, v in caches[key][0].items()}
+        del caches
+        t0 = time.perf_counter()
+        again, caches = model.prefill({"tokens": toks})
+        torch.cuda.synchronize()
+        repeat_s = time.perf_counter() - t0
+        del caches
+        # one more under the profiler (device activity only); xlstm's on
+        # REC_PROFILE_XLSTM tokens a row, its sLSTM's steps being the same
+        # work a token at any length
+        ptoks = toks[:, :REC_PROFILE_XLSTM] if phase == "xlstm" else toks
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, caches = model.prefill({"tokens": ptoks})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        del caches
+        res["profiled_prefill"] = dict(self._step_breakdown(prof, wall),
+                                       tokens=list(ptoks.shape))
+        del prof
+        res["prefill"] = {
+            "batch": b, "seq": s, "first_call_s": first_s,
+            "repeat_s": repeat_s, "tokens_per_s": b * s / repeat_s,
+            "launches": pre, "rmsnorm_one_read": one_read,
+            "cache_shapes": shapes,
+            "repeat_bitwise": bool(torch.equal(again, logits)),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        for key in launches:
+            launches[key] += pre[key]
+        # the kernels against the plain versions at full depth, and the
+        # residual stream after the first segment
+        ctoks = rng.integers(0, vocab, REC_COMPARE)
+        lk, caches = model.prefill({"tokens": ctoks})
+        hk = self._first_segment(model, ctoks)
+        del caches, again
+        model.backend, model.cfg = "plain", cfg.replace(attn_impl="chunked")
+        t0 = time.perf_counter()
+        lp, caches = model.prefill({"tokens": ctoks})
+        torch.cuda.synchronize()
+        res["plain_prefill_s"] = time.perf_counter() - t0
+        hp = self._first_segment(model, ctoks)
+        del caches
+        model.backend, model.cfg = "auto", cfg
+        torch.cuda.empty_cache()
+        # the main path, serving: counts from 0 just before, read just after
+        eng = ServeEngine(model, n_slots=4, cache_len=256)
+        reqs = [Request(uid=i, prompt=rng.integers(0, vocab, 64),
+                        max_new=REC_SERVE_MAX_NEW) for i in range(4)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        served = self._moe_counts()
+        calls = eng.n_decode_calls
+        check(served == dict({k: v * calls for k, v in per_step.items()},
+                             **zero_bwd),
+              f"{phase}: engine launches {served} for {calls} decode steps "
+              f"({per_step} a step expected)")
+        check(len(done) == 4
+              and all(len(r.out) == REC_SERVE_MAX_NEW for r in done)
+              and all(0 <= t < vocab for r in done for t in r.out),
+              f"{phase}: 4 requests of {REC_SERVE_MAX_NEW} tokens in the "
+              "vocabulary")
+        for key in launches:
+            launches[key] += served[key]
+        steps = eng.step_seconds
+        res["serve"] = {
+            "requests": 4, "prompt": 64, "max_new": REC_SERVE_MAX_NEW,
+            "slots": 4, "cache_len": 256, "seconds": run_s,
+            "decode_calls": calls, "ticks": len(steps),
+            "step_p50_ms": float(np.percentile(steps, 50)) * 1e3,
+            "step_p99_ms": float(np.percentile(steps, 99)) * 1e3,
+            "new_tokens_per_s_run": sum(len(r.out) for r in done) / run_s,
+            "launches": served,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        res["decode_idle"] = self._decode_idle(model, eng, steps)
+        del eng
+        short = rng.integers(0, vocab, (1, 65))
+        ld, l65 = self._decode_vs_prefill(model, short)
+        # the reference's own bf16 error: the plain versions in f32 on the
+        # same weights, widened (REC_BF16_LOGIT_TOL's comment); the bf16
+        # model goes first, to leave the f32 prefill its memory
+        m32 = build_model(cfg.replace(dtype="float32", attn_impl="chunked"),
+                          device=self.dev, backend="plain")
+        own = dict(model.named_parameters())
+        with torch.no_grad():
+            for name, p32 in m32.named_parameters():
+                p32.copy_(own[name])
+        del own, model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lf, caches = m32.prefill({"tokens": ctoks})
+        torch.cuda.synchronize()
+        res["f32_plain_prefill_s"] = time.perf_counter() - t0
+        del caches
+        lf65, _ = m32.prefill({"tokens": short})
+        hf = self._first_segment(m32, ctoks)
+        del m32
+        torch.cuda.empty_cache()
+        seg = float((hk - hp).norm() / hp.norm())
+        res["first_segment_bf16"] = {
+            "layers": segments_for(cfg)[0][1], "tokens": list(REC_COMPARE),
+            "kernels_vs_plain_rel_l2": seg,
+            "plain_vs_f32_rel_l2": float((hp - hf).norm() / hf.norm()),
+            "kernels_vs_f32_rel_l2": float((hk - hf).norm() / hf.norm()),
+            "tol": REC_SEG0_TOL}
+        check(seg <= REC_SEG0_TOL,
+              f"{phase}: the residual stream after the first segment, "
+              f"kernels vs plain, relative L2 {seg} > {REC_SEG0_TOL}")
+        del hk, hp, hf
+        tol = REC_BF16_LOGIT_TOL[phase]
+        res["kernels_vs_plain_bf16"] = self._rec_agree(
+            f"{phase} prefill {REC_COMPARE}, kernels vs plain", lk, lp, lf,
+            tol)
+        res["decode_vs_prefill_bf16"] = self._rec_agree(
+            f"{phase} decode_step after prefill(64) vs prefill(65)", ld, l65,
+            lf65, tol)
+        return res
+
+    def _decode_vs_prefill(self, model, short):
+        """(logits of decode_step after prefill(short[:, :64]), logits of
+        prefill(short)), short (1, 65): the prefill's keys and values get
+        room for one more position; recurrent state is taken as it is."""
+        torch = self.torch
+        import numpy as np
+        _, c64 = model.prefill({"tokens": short[:, :64]})
+        l65, _ = model.prefill({"tokens": short})
+        pad = {seg: [{k: torch.cat([t, torch.zeros_like(t[:, :1])], 1)
+                      if k in ("k", "v") else t for k, t in c.items()}
+                     for c in layers] for seg, layers in c64.items()}
+        ld, _ = model.decode_step(pad, short[:, 64:65],
+                                  np.full((1,), 64, np.int64))
+        return ld, l65
+
+    def _first_segment(self, model, toks):
+        """The residual stream (f32 copy) after the model's first segment
+        on `toks`, as its prefill computes it."""
+        from repro_torch.models.transformer import (
+            run_stack_train, segments_for)
+        kind, count, shared = segments_for(model.cfg)[0]
+        with self.torch.inference_mode():
+            x, _ = model._embed({"tokens": toks})
+            x, _ = run_stack_train(model._layers(0, shared, count), x,
+                                   model.cfg, kind,
+                                   model._positions(x.shape[1]),
+                                   backend=model.backend)
+        return x.float()
+
+    def _rec_agree(self, case, got, want, want_f32, tol_frac) -> dict:
+        """Full-depth bf16 logits of two routes within the larger of
+        tol_frac of max |want| and REC_FLOOR_MUL times want's own distance
+        from the f32 run (`want_f32`): REC_BF16_LOGIT_TOL's comment."""
+        scale = float(want.abs().max())
+        floor = float((want - want_f32).abs().max())
+        res = self._bf16_logits_agree(
+            case, got, want, max(tol_frac, REC_FLOOR_MUL * floor / scale))
+        res.update(bf16_vs_f32_max_abs_diff=floor, fixed_tol_frac=tol_frac,
+                   got_vs_f32_max_abs_diff=float(
+                       (got - want_f32).abs().max()))
+        return res
+
+    def _rec_train(self, phase, base, launches, seed) -> dict:
+        """Full width, REC_TRAIN_LAYERS layers, bf16, remat "full", chunked
+        attention: REC_TRAIN_STEPS steps of REC_TRAIN_BATCH x seq tokens
+        with exact launch counts a step, the first REC_TRAIN_PLAIN_STEPS
+        against the plain versions from the same state; step p50, tokens/s,
+        peak memory, a profiled step."""
+        torch = self.torch
+        from repro_torch.configs import TrainConfig
+        from repro_torch.data.tokens import TokenPipeline
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model
+        from repro_torch.training import make_train_step, train_state_init
+        from torch.profiler import ProfilerActivity, profile
+        cfg = base.replace(n_layers=REC_TRAIN_LAYERS[phase])
+        b, s = REC_TRAIN_BATCH, REC_TRAIN_SEQ[phase]
+        tokens = b * s
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                           total_steps=REC_TRAIN_STEPS)
+        pipe = TokenPipeline(cfg.vocab, b, s, seed=self.seed)
+        # per step with remat "full": each block's norms and swiglu run
+        # again in the backward's recompute; one backward each
+        fwd = self._per_call(cfg)[1]
+        blocks = fwd["rmsnorm"] - 1
+        per_step = {"flash_attention": 0, "rmsnorm": 2 * blocks + 1,
+                    "swiglu": 2 * fwd["swiglu"], "rmsnorm_bwd": blocks + 1,
+                    "swiglu_bwd": fwd["swiglu"]}
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(seed))
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        first_w = next(k for k in params if k.startswith(
+            "segments.seg_00.0.") and params[k].dim() == 2)
+        probe = {k: params[k][:2].clone() for k in ("tok_embed", first_w)}
+        n_params = sum(p.numel() for p in params.values())
+        state = train_state_init(params, tcfg)
+        step = make_train_step(model, tcfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        mets, times, first, breakdown = [], [], None, None
+        for i in range(REC_TRAIN_STEPS):
+            # step 2 under the profiler (device activity only)
+            prof = profile(activities=[ProfilerActivity.CUDA]) \
+                if i == 1 else contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with prof:
+                state, m = step(state, pipe.batch_at(i))
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            mets.append({k: float(v) for k, v in m.items()})
+            if first is None:
+                first = self._moe_counts()
+            if i == 1:
+                breakdown = self._step_breakdown(prof, times[-1])
+                del prof
+        counts = self._moe_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(first == per_step,
+              f"{phase} train: launches of one step {first}, expected "
+              f"{per_step}")
+        check(counts == {k: REC_TRAIN_STEPS * v
+                         for k, v in per_step.items()},
+              f"{phase} train: launches of {REC_TRAIN_STEPS} steps {counts}")
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                  for m in mets) and [int(m["step"]) for m in mets]
+              == list(range(1, REC_TRAIN_STEPS + 1)),
+              f"{phase} train: losses and grad norms finite, steps counted: "
+              f"{mets}")
+        for key in launches:
+            launches[key] += counts[key]
+        # the plain versions from the same state
+        del state
+        torch.cuda.empty_cache()
+        model.init(torch.Generator(device=self.dev).manual_seed(seed))
+        check(all(torch.equal(params[k][:2], v) for k, v in probe.items()),
+              f"{phase} train: the weights drawn again from the seed are the "
+              "same")
+        state = train_state_init(params, tcfg)
+        plain = make_train_step(build_model(cfg, device="meta",
+                                            backend="plain"), tcfg)
+        ops.reset_launch_counts()
+        pmets, ptimes = [], []
+        for i in range(REC_TRAIN_PLAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = plain(state, pipe.batch_at(i))
+            torch.cuda.synchronize()
+            ptimes.append(time.perf_counter() - t0)
+            pmets.append({k: float(v) for k, v in m.items()})
+        check(all(v == 0 for v in self._moe_counts().values()),
+              f"{phase} train: the plain run launched a kernel")
+        agree = []
+        for i, (k, p) in enumerate(zip(mets, pmets)):
+            dl = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+            dg = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
+            check(dl <= TRAIN_LOSS_TOL and dg <= REC_TRAIN_GNORM_TOL[phase]
+                  and k["lr"] == p["lr"],
+                  f"{phase} train: step {i + 1} kernels {k} against plain "
+                  f"{p}")
+            agree.append({"step": i + 1, "loss_rel": dl, "grad_norm_rel": dg})
+        del state, params, model, step, plain
+        torch.cuda.empty_cache()
+        p50 = statistics.median(times[2:])
+        model_flops = 6.0 * n_params * tokens
+        return {
+            "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "remat": cfg.remat, "attn_impl": cfg.attn_impl,
+            "ssm_chunk": cfg.ssm_chunk, "batch": b, "seq": s,
+            "steps": REC_TRAIN_STEPS, "params": n_params, "init_s": init_s,
+            "step_seconds": times,
+            f"step_p50_s_steps_3_to_{REC_TRAIN_STEPS}": p50,
+            "tokens_per_s": tokens / p50, "peak_memory_gb": peak / 1e9,
+            "model_flops_per_step_6nd": model_flops,
+            "model_flop_share_of_989_tflops":
+                model_flops / p50 / PEAK_BF16_FLOPS,
+            "profiled_step": breakdown,
+            "metrics": mets, "launches_one_step": first, "launches": counts,
+            "plain_metrics": pmets, "plain_step_seconds": ptimes,
+            "kernels_vs_plain": agree,
+            "tol": {"loss": TRAIN_LOSS_TOL,
+                    "grad_norm": REC_TRAIN_GNORM_TOL[phase]}}
+
     def kernel_rows(self) -> list[dict]:
         """One row per kernel: launches on its main path, largest error
         against its plain version, and its times at the shape its main
@@ -4419,19 +5092,21 @@ class _Routing:
 
 def _device_events(prof) -> list[tuple[str, float, int]]:
     """(name, device microseconds, count) of each kind of work the device
-    ran in a profile: its kernels and copies only.  The host-side event
-    that launched a kernel reports the same device time as the kernel, so
-    summing over every event would count each kernel twice."""
+    ran in a profile: its kernels and copies only, summed by name from the
+    profiler's raw events (the host-side event that launched a kernel
+    reports the same device time, so summing over every event would count
+    each kernel twice).  The raw events are read directly:
+    `key_averages()` builds a Python object an event, about 150 µs each,
+    which over an xlstm prefill's 625,000 kernels took 97 s."""
     from torch.autograd import DeviceType
-    out = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+    sums: dict[str, list] = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or ev.duration_ns() <= 0:
             continue
-        dt = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0)) or 0.0
-        if dt > 0:
-            out.append((ev.key, dt, ev.count))
-    return out
+        acc = sums.setdefault(ev.name(), [0.0, 0])
+        acc[0] += ev.duration_ns() / 1e3
+        acc[1] += 1
+    return [(name, us, count) for name, (us, count) in sums.items()]
 
 
 def _perturbed(np, chunks, n: int, seed: int):

@@ -102,8 +102,11 @@ def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda",
     parameters: `tree` is the JAX tree after `jax.tree.map(np.asarray,
     params)`, with `lm_head` (D, V) as the JAX package stores it (absent
     when the embeddings are tied) and each segment's leaves stacked on a
-    leading layer dim (split here per layer).  `dtype` (a torch dtype name)
-    overrides `cfg.dtype`."""
+    leading layer dim (split here per layer; a segment of one layer is not
+    stacked), and the hybrid family's shared block under "shared".  The
+    f32 leaves (the MoE router, Mamba's a_log, dt_bias and d_skip) stay
+    f32 in a bf16 model.  `dtype` (a torch dtype name) overrides
+    `cfg.dtype`."""
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
     model = Model(cfg, device=device)
@@ -120,23 +123,33 @@ def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda",
     put(model.final_norm, tree["final_norm"])
     if model.lm_head is not None:
         put(model.lm_head, tree["lm_head"])
-    for i, (_, count, _) in enumerate(segments_for(cfg)):
-        stacked = tree["segments"][_seg_key(i)]
+
+    def fill(where, block, leaves, layer=None):
+        if set(leaves) != set(block.keys()):
+            raise ValueError(f"{where}: JAX leaves {sorted(leaves)} "
+                             f"!= port {sorted(block.keys())}")
+        for name, a in leaves.items():
+            put(block[name], _np(a) if layer is None else _np(a)[layer])
+
+    for i, (_, count, shared) in enumerate(segments_for(cfg)):
+        if shared:
+            continue
         layers = model.segments[_seg_key(i)]
-        if set(stacked) != set(layers[0].keys()):
-            raise ValueError(f"{_seg_key(i)}: JAX leaves {sorted(stacked)} "
-                             f"!= port {sorted(layers[0].keys())}")
-        for name, a in stacked.items():
-            for layer in range(count):
-                # a segment of one layer is not stacked in the JAX package
-                put(layers[layer][name], _np(a) if count == 1
-                    else _np(a)[layer])
+        for layer in range(count):
+            fill(_seg_key(i), layers[layer], tree["segments"][_seg_key(i)],
+                 None if count == 1 else layer)
+    if model.shared is not None:
+        fill("shared", model.shared, tree["shared"])
     return model
 
 
 def lm_caches_to_numpy(caches: dict) -> dict:
-    """A port cache ({"seg_00": [{"k", "v"} per layer]}) in the JAX layout:
-    {"seg_00": {"k": (L, B, S, Hkv, hd), "v": ...}} as f32 numpy arrays."""
+    """A port cache ({"seg_00": [cache per layer]}) in the JAX layout, each
+    leaf stacked over the segment's layers (a shared or one-layer segment
+    with a leading dim of 1): {"seg_00": {"k": (L, B, S, Hkv, hd), "v":
+    ...}} for attention, {"conv": (L, B, w-1, d_inner), "ssm": (L, B, H,
+    hd, N)} for Mamba, and the mLSTM's and sLSTM's states, as f32 numpy
+    arrays."""
     return {seg: {name: np.stack([c[name].detach().to(torch.float32)
                                   .cpu().numpy() for c in layers])
                   for name in layers[0]}
@@ -150,15 +163,24 @@ def _np(a) -> np.ndarray:
     return np.asarray(a)
 
 
+def _path(tree: dict, name: str):
+    """The leaf of a nested tree at a dotted parameter name ("shared.wq"
+    -> tree["shared"]["wq"])."""
+    for part in name.split("."):
+        tree = tree[part]
+    return tree
+
+
 def _from_jax_layout(tree: dict, names, device) -> dict[str, torch.Tensor]:
     """Per-name f32 tensors on `device` from a JAX-layout tree (a segment's
-    leaves stacked over its layers when it has more than one)."""
+    leaves stacked over its layers when it has more than one; the shared
+    block's under "shared")."""
     stacked = stacked_segments(names)
     out = {}
     for n in names:
         at = layer_of(n)
         if at is None:
-            a = _np(tree[n])
+            a = _np(_path(tree, n))
         else:
             a = _np(tree["segments"][at[0]][at[2]])
             a = a[at[1]] if at[0] in stacked else a
@@ -168,8 +190,9 @@ def _from_jax_layout(tree: dict, names, device) -> dict[str, torch.Tensor]:
 
 def _to_jax_layout(named: dict[str, torch.Tensor]) -> dict:
     """The JAX-layout numpy tree of per-name tensors: each segment's layers
-    stacked in layer order (a segment of one layer as it is); bfloat16
-    widened to f32 (exact; numpy has no bfloat16)."""
+    stacked in layer order (a segment of one layer as it is), the shared
+    block's under "shared"; bfloat16 widened to f32 (exact; numpy has no
+    bfloat16)."""
     def host(t):
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
@@ -179,7 +202,11 @@ def _to_jax_layout(named: dict[str, torch.Tensor]) -> dict:
     for n, t in named.items():
         at = layer_of(n)
         if at is None:
-            tree[n] = host(t)
+            *outer, leaf = n.split(".")
+            node = tree
+            for part in outer:
+                node = node.setdefault(part, {})
+            node[leaf] = host(t)
         else:
             stacks.setdefault(at[0], {}).setdefault(at[2], {})[at[1]] = t
     stacked = stacked_segments(named)

@@ -64,14 +64,23 @@
 //     so the library needs no -lcuda.  The map's S extent is S itself: TMA
 //     zero-fills rows past S (S below one tile), which the mask then sets to
 //     -1e30.  With a swizzle the inner box is at most the swizzle span, so a
-//     tile is Dh / BW boxes of BW = min(Dh, 64) columns, swizzled over 2 BW
+//     tile is DP / BW boxes of BW = min(Dh, 64) columns, swizzled over 2 BW
 //     bytes (32, 64 or 128), and the wgmma descriptors name the same
 //     swizzle: K-major operands step 32 bytes along Dh inside a box, the
 //     V operand's leading byte offset is the box stride.
 //   * Tiles (`Cfg<DH>`, the one table of them):
-//       Dh 16, 32, 64, 128: BKV = 128 keys;  Dh 256: BKV = 64 keys.
-//     Shared memory (Q + 2 stages of K and V): 21, 41, 82, 165 and 198 KB,
-//     one block an SM.
+//       Dh 16, 32, 64, 112, 128: BKV = 128 keys;  Dh 256: BKV = 64 keys.
+//     Shared memory (Q + 2 stages of K and V): 21, 41, 82, 165, 165 and
+//     198 KB, one block an SM.
+//   * Dh 112 (zamba2-7b's shared attention) runs the Dh-128 tile: Dh is
+//     padded to DP = 128, two 64-column boxes, and the tensor maps' Dh
+//     extent stays 112, so TMA fills columns 112-127 of Q, K and V with
+//     zeros (and counts them in the transaction bytes, as it counts every
+//     box in full).  Q K^T takes the 7 k16 steps of the 112 real columns;
+//     P V runs n128, whose last 16 accumulator columns sum P times those
+//     zeros and are not stored; the epilogue writes 112 columns at a row
+//     stride of 112.  That is 14 % more P V tensor-core work than an n112
+//     product would do.
 //   * Registers.  A consumer thread holds Dh/2 accumulator floats of O,
 //     BKV/2 of S and BKV/4 words of bf16 P: 160 at Dh 128, 176 at Dh 256,
 //     before addresses and softmax state.  The launch gives the block 384
@@ -86,7 +95,8 @@
 //     hanging the card.
 //
 // The f32 kernel (`simt`).  One block of 256 threads per (b*h, 64-row query
-// tile); Q (pre-scaled), the K tile and the V tile are staged in shared
+// tile), any Dh that is a multiple of 16 (CPT = Dh/16 output columns a
+// thread: 7 at Dh 112); Q (pre-scaled), the K tile and the V tile are staged in shared
 // memory as f32 (98 KB at Dh=128, two blocks an SM); the P tile reuses the K
 // tile's buffer.  Each thread holds a 4x4 register tile of logits and a 4 x
 // Dh/16 tile of the output; a row's 16 threads are one half-warp, so the row
@@ -346,7 +356,9 @@ template <int DH>
 struct Cfg {
   static constexpr int BKV = DH == 256 ? 64 : 128;   // keys a tile
   static constexpr int BW = DH < 64 ? DH : 64;        // Dh columns a box
-  static constexpr int NBOX = DH / BW;
+  // Dh padded to whole boxes (112 -> 128); TMA zero-fills the padding
+  static constexpr int DP = (DH + BW - 1) / BW * BW;
+  static constexpr int NBOX = DP / BW;
   static constexpr int ROW = 2 * BW;                  // bytes a box row
   static constexpr uint64_t MODE = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
   static constexpr int Q_BOX = BQ * ROW;
@@ -541,9 +553,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int r_lo = w0 + 16 * warp + lane / 4;
   const int cq = 2 * (lane % 4);
 
-  float acc[DH / 2];
+  constexpr int DP = C::DP;
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
   float m[2] = {NEG, NEG};
   float l[2] = {0.0f, 0.0f};
 
@@ -623,7 +636,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       l[i] = alpha[i] * l[i] + rs;
     }
 #pragma unroll
-    for (int jj = 0; jj < DH / 8; ++jj)
+    for (int jj = 0; jj < DP / 8; ++jj)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         acc[4 * jj + 2 * i] *= alpha[i];
@@ -650,13 +663,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int kk = 0; kk < BKV / 16; ++kk) {
       const uint64_t db =
           desc<C::MODE>(vt + kk * 16 * C::ROW, C::KV_BOX, 8 * C::ROW);
-      if constexpr (DH == 16) {
+      if constexpr (DP == 16) {
         wgmma::rs_n16(acc, pa[kk], db);
-      } else if constexpr (DH == 32) {
+      } else if constexpr (DP == 32) {
         wgmma::rs_n32(acc, pa[kk], db);
-      } else if constexpr (DH == 64) {
+      } else if constexpr (DP == 64) {
         wgmma::rs_n64(acc, pa[kk], db);
-      } else if constexpr (DH == 128) {
+      } else if constexpr (DP == 128) {
         wgmma::rs_n128(acc, pa[kk], db);
       } else {
         wgmma::rs_n256(acc, pa[kk], db);
@@ -767,8 +780,9 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 // float32: q (B, H, S, Dh), k and v (B, Hkv, S, Dh) with element strides
 // (qsb, qsh, qss), (ksb, ksh, kss), (vsb, vsh, vss) and Dh contiguous; o a
-// contiguous (B, H, S, Dh).  Dh in {16, 32, 64, 128, 256}; H a multiple of
-// Hkv; every row 16-byte aligned (the wrapper checks all of it).
+// contiguous (B, H, S, Dh).  Dh in {16, 32, 64, 112, 128, 256}; H a
+// multiple of Hkv; every row 16-byte aligned (the wrapper checks all of
+// it).
 extern "C" int flash_attention_f32_fwd(const void* q, const void* k,
                                        const void* v, void* o, int b, int h,
                                        int hkv, int s, int dh, long long qsb,
@@ -783,6 +797,7 @@ extern "C" int flash_attention_f32_fwd(const void* q, const void* k,
     case 16: return simt::launch<16>(q, k, v, o, b, h, hkv, s, st, scale, causal, cs);
     case 32: return simt::launch<32>(q, k, v, o, b, h, hkv, s, st, scale, causal, cs);
     case 64: return simt::launch<64>(q, k, v, o, b, h, hkv, s, st, scale, causal, cs);
+    case 112: return simt::launch<112>(q, k, v, o, b, h, hkv, s, st, scale, causal, cs);
     case 128: return simt::launch<128>(q, k, v, o, b, h, hkv, s, st, scale, causal, cs);
     case 256: return simt::launch<256>(q, k, v, o, b, h, hkv, s, st, scale, causal, cs);
     default: return (int)cudaErrorInvalidValue;
@@ -804,6 +819,7 @@ extern "C" int flash_attention_bf16_fwd(const void* q, const void* k,
     case 16: return tc::launch<16>(q, k, v, o, geom, scale, causal, cs);
     case 32: return tc::launch<32>(q, k, v, o, geom, scale, causal, cs);
     case 64: return tc::launch<64>(q, k, v, o, geom, scale, causal, cs);
+    case 112: return tc::launch<112>(q, k, v, o, geom, scale, causal, cs);
     case 128: return tc::launch<128>(q, k, v, o, geom, scale, causal, cs);
     case 256: return tc::launch<256>(q, k, v, o, geom, scale, causal, cs);
     default: return (int)cudaErrorInvalidValue;

@@ -17,7 +17,7 @@
 // no block barrier).  Two kernels, chosen by the row width in the wrapper
 // (`kernels/rmsnorm.py:one_read_packs`):
 //   * one read (`rmsnorm_one_read_kernel`), for the dense configurations'
-//     d_model (2048, 2560, 3072, 4096) on 16-byte aligned rows: each lane
+//     d_model (2048, 2560, 3072, 3584, 4096) on 16-byte aligned rows: each lane
 //     loads its NP 16-byte packs of the row (lane + 32 p: neighbouring
 //     lanes on neighbouring addresses, all loads in flight at once) into
 //     registers, sums their squares, and scales the same registers, so the
@@ -169,7 +169,8 @@ int launch_one_read(const void* x, const void* w, void* out, long long rows,
   return (int)cudaGetLastError();
 }
 
-// The one-read kernel's pack counts: d_model 2048, 2560, 3072 and 4096.
+// The one-read kernel's pack counts: d_model 2048, 2560, 3072, 3584 and
+// 4096.
 template <typename T>
 int launch_packs(const void* x, const void* w, void* out, long long rows,
                  int d, float eps, int packs, cudaStream_t stream) {
@@ -178,6 +179,7 @@ int launch_packs(const void* x, const void* w, void* out, long long rows,
     case 8 * S: return launch_one_read<T, 8 * S>(x, w, out, rows, d, eps, stream);
     case 10 * S: return launch_one_read<T, 10 * S>(x, w, out, rows, d, eps, stream);
     case 12 * S: return launch_one_read<T, 12 * S>(x, w, out, rows, d, eps, stream);
+    case 14 * S: return launch_one_read<T, 14 * S>(x, w, out, rows, d, eps, stream);
     case 16 * S: return launch_one_read<T, 16 * S>(x, w, out, rows, d, eps, stream);
     default: return (int)cudaErrorInvalidValue;
   }

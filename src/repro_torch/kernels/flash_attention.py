@@ -39,7 +39,9 @@ from repro_torch.kernels._checks import (
 
 __all__ = ["flash_attention", "check_shapes", "HEAD_DIMS", "tma_geometry"]
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # Dh the kernels are compiled for
+# Dh the kernels are compiled for (112, zamba2-7b's, runs the Dh-128 tile
+# of the tensor-core kernel with TMA zero-filling columns 112-127)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 # The driver's codes for a failed cuTensorMapEncodeTiled start here.
 _ENCODE_ERROR = 100000
 

@@ -8,13 +8,19 @@ names:
   tok_embed (V, D), final_norm (D,), lm_head (D, V) unless tied,
   segments.seg_00 = [per-layer ParameterDict]  (the JAX package stacks the
                                                 layers and scans them)
+  shared = ParameterDict                       (the hybrid family's shared
+                                                attention block, one set of
+                                                tensors for all its uses)
 
-every tensor in the config's dtype but the MoE router, which is f32 (as
-in the JAX package).
+every tensor in the config's dtype but the MoE router and Mamba's a_log,
+dt_bias and d_skip, which are f32 (as in the JAX package).  A shared
+segment has no entry under `segments` (nor has it in the JAX package).
 
-Caches mirror the segments: {"seg_00": [{"k", "v"} per layer]}, each
-(B, S, Hkv, hd); `convert.lm_caches_to_numpy` gives them in the JAX
-layout.  `decode_step` writes the caches in place.  The parameters are
+Caches mirror the segments, shared ones included: {"seg_00": [cache per
+layer]}, {"k", "v"} (B, S, Hkv, hd) for an attention block (each use of
+the shared block its own), the recurrent state for a Mamba, mLSTM or
+sLSTM block; `convert.lm_caches_to_numpy` gives them in the JAX layout.
+`decode_step` writes the caches in place.  The parameters are
 trainable: `loss(batch)` (also `forward`, so `torch.func.functional_call`
 can run it on a training state's tensors) is the mean next-token loss
 that `training/step.py` differentiates, each block rematerialized as
@@ -51,7 +57,8 @@ def _seg_key(i: int) -> str:
 def layer_of(name: str) -> tuple[str, int, str] | None:
     """(segment key, layer, leaf) of a block tensor's parameter name
     ("segments.seg_00.3.wq" -> ("seg_00", 3, "wq")); None for the others
-    ("tok_embed", "final_norm", "lm_head")."""
+    ("tok_embed", "final_norm", "lm_head", the shared block's
+    "shared.wq")."""
     parts = name.split(".")
     if parts[0] == "segments" and len(parts) == 4:
         return parts[1], int(parts[2]), parts[3]
@@ -76,8 +83,8 @@ def jax_ranks(params: dict) -> dict[str, int]:
     """name -> the rank of the tensor as the JAX package lays it out: one
     more than its own for a block tensor of a stacked segment
     ("segments.seg_00.3.norm1" (D,) is a row of the (L, D) leaf); its own
-    for tok_embed, lm_head, final_norm and the tensors of a segment that
-    is not stacked (`stacked_segments`)."""
+    for tok_embed, lm_head, final_norm, the shared block's tensors and the
+    tensors of a segment that is not stacked (`stacked_segments`)."""
     stacked = stacked_segments(params)
     out = {}
     for n, t in params.items():
@@ -120,12 +127,16 @@ class Model(nn.Module):
         self.final_norm = empty(cfg.d_model)
         self.lm_head = None if cfg.tie_embeddings else empty(cfg.d_model,
                                                              cfg.vocab)
+        def block(kind):
+            return nn.ParameterDict({n: empty(*s, dtype=t) for n, (s, t) in
+                                     block_shapes(cfg, kind, dt).items()})
         self.segments = nn.ModuleDict({
-            _seg_key(i): nn.ModuleList([
-                nn.ParameterDict({n: empty(*s, dtype=t) for n, (s, t) in
-                                  block_shapes(cfg, kind, dt).items()})
-                for _ in range(count)])
-            for i, (kind, count, _) in enumerate(segs)})
+            _seg_key(i): nn.ModuleList([block(kind) for _ in range(count)])
+            for i, (kind, count, shared) in enumerate(segs) if not shared})
+        # the hybrid family's one shared kind (`segments_for`)
+        shared = next((kind for kind, _, is_shared in segs if is_shared),
+                      None)
+        self.shared = None if shared is None else block(shared)
 
     @property
     def device(self) -> torch.device:
@@ -148,13 +159,25 @@ class Model(nn.Module):
         if self.lm_head is not None:
             self.lm_head.copy_(
                 embed_init(gen, cfg.vocab, cfg.d_model, dt).T)
-        for i, (kind, _, _) in enumerate(segments_for(cfg)):
-            for layer in self.segments[_seg_key(i)]:
-                for name, t in init_block(gen, cfg, kind, dt).items():
-                    layer[name].copy_(t)
+        blocks = []     # in the segments' order; the shared block once
+        for i, (kind, _, shared) in enumerate(segments_for(cfg)):
+            if not shared:
+                blocks += [(kind, layer) for layer in
+                           self.segments[_seg_key(i)]]
+            elif all(layer is not self.shared for _, layer in blocks):
+                blocks.append((kind, self.shared))
+        for kind, layer in blocks:
+            for name, t in init_block(gen, cfg, kind, dt).items():
+                layer[name].copy_(t)
         return self
 
     # --------------------------------------------------------------- helpers
+    def _layers(self, i: int, shared: bool, count: int):
+        """The parameter dicts segment i runs in order: its layers, or the
+        shared block `count` times."""
+        return [self.shared] * count if shared \
+            else self.segments[_seg_key(i)]
+
     def _ids(self, a) -> torch.Tensor:
         """Token ids or positions (numpy or tensor) as int64 on the device."""
         if isinstance(a, np.ndarray):
@@ -178,16 +201,16 @@ class Model(nn.Module):
     def _body_train(self, x: torch.Tensor, positions: torch.Tensor,
                     enc_out=None, want_cache: bool = False):
         """The full-sequence forward of every segment -> (x (B, S, D),
-        caches {"seg_00": [{"k", "v"} per layer]} if `want_cache`, else
-        {}).  No final norm."""
+        caches {"seg_00": [cache per layer]} if `want_cache`, else {}).
+        No final norm."""
         if enc_out is not None:
             raise NotImplementedError(
                 "the encoder-decoder is not ported yet "
                 "(ROADMAP.md queue 1: frontends and the encoder-decoder)")
         caches = {}
-        for i, (kind, _, _) in enumerate(segments_for(self.cfg)):
+        for i, (kind, count, shared) in enumerate(segments_for(self.cfg)):
             x, cache = run_stack_train(
-                self.segments[_seg_key(i)], x, self.cfg, kind, positions,
+                self._layers(i, shared, count), x, self.cfg, kind, positions,
                 want_cache=want_cache, backend=self.backend)
             if want_cache:
                 caches[_seg_key(i)] = cache
@@ -220,7 +243,9 @@ class Model(nn.Module):
     @torch.inference_mode()
     def prefill(self, batch: dict):
         """batch["tokens"] (B, S) -> (last-token logits (B, V) f32,
-        caches {"seg_00": [{"k", "v"} (B, S, Hkv, hd) per layer]})."""
+        caches {"seg_00": [cache per layer]}: {"k", "v"} (B, S, Hkv, hd)
+        of an attention block, the state after the sequence of a recurrent
+        one)."""
         x, _ = self._embed(batch)
         x, caches = self._body_train(x, self._positions(x.shape[1]),
                                      want_cache=True)
@@ -229,8 +254,10 @@ class Model(nn.Module):
     # ----------------------------------------------------------------- cache
     @torch.inference_mode()
     def init_cache(self, batch: int, cache_len: int) -> dict:
-        """Zeroed slot caches: {"seg_00": [{"k", "v"} (batch, cache_len,
-        Hkv, hd) per layer]} in the model's dtype and device."""
+        """Zeroed slot caches on the model's device: {"seg_00": [cache per
+        layer]}, {"k", "v"} (batch, cache_len, Hkv, hd) in the model's dtype
+        for an attention block (each use of the shared block its own), the
+        recurrent state (`init_block_cache`) for the others."""
         return {_seg_key(i): [init_block_cache(self.cfg, kind, batch,
                                                cache_len, self.dtype,
                                                self.device)
@@ -243,12 +270,14 @@ class Model(nn.Module):
     def decode_step(self, caches: dict, tokens, pos,
                     decode_mode: str = "tp"):
         """tokens (B, 1), pos (B,) (numpy or tensors of ints) -> (logits
-        (B, V) f32, caches), the caches written in place at `pos`."""
+        (B, V) f32, caches), the caches written in place: keys and values
+        at `pos`, every lane's recurrent state advanced by its token."""
         cfg = self.cfg
         x = self.tok_embed[self._ids(tokens)]
         pos = self._ids(pos)
-        for i, (kind, _, _) in enumerate(segments_for(cfg)):
-            x, _ = run_stack_decode(self.segments[_seg_key(i)], x, cfg, kind,
+        for i, (kind, count, shared) in enumerate(segments_for(cfg)):
+            x, _ = run_stack_decode(self._layers(i, shared, count), x, cfg,
+                                    kind,
                                     caches[_seg_key(i)], pos,
                                     decode_mode=decode_mode,
                                     backend=self.backend)

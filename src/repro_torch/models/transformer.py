@@ -4,9 +4,14 @@ The port of `repro/models/transformer.py`.  A model body is a list of
 segments (`segments_for`, the same layout as the JAX package); a segment
 is a list of per-layer parameter dicts run in a Python loop, where the JAX
 package stacks them and scans.  The port runs the `attn_mlp` kind (dense
-and vision-language families) and the `attn_moe` kind (the MoE family:
-`models/moe.py` in place of the MLP); the other kinds raise
-NotImplementedError naming the ROADMAP.md item that ports them.
+and vision-language families), the `attn_moe` kind (the MoE family:
+`models/moe.py` in place of the MLP), the hybrid family's `mamba` blocks
+(`models/ssm.py`) and its `shared_attn` block (`attn_mlp`'s layout, one
+parameter set for all its uses), and the xLSTM family's `mlstm` and
+`slstm` blocks (`models/xlstm.py`); the encoder-decoder's kinds raise
+NotImplementedError naming the ROADMAP.md item that ports them.  Every
+block norms its input with the rmsnorm kernel; the recurrent blocks'
+caches hold state, not keys and values.
 
 Where autograd records, `run_stack_train` rematerializes each block as
 `cfg.remat` says (the counterpart of the JAX package's `_remat_wrap`):
@@ -20,6 +25,7 @@ gradients.
 from __future__ import annotations
 
 import functools
+from typing import Callable, NamedTuple
 
 import torch
 from torch.utils.checkpoint import (
@@ -28,19 +34,40 @@ from torch.utils.checkpoint import (
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import mlp_apply, mlp_init, rmsnorm
 
 __all__ = ["SEGMENT_KINDS", "require_ported", "segments_for", "block_shapes",
            "init_block", "block_train", "block_decode", "init_block_cache",
            "run_stack_train", "run_stack_decode"]
 
-SEGMENT_KINDS = ("attn_mlp", "attn_moe")   # the kinds the port runs
+# the kinds the port runs
+SEGMENT_KINDS = ("attn_mlp", "attn_moe", "shared_attn", "mamba", "mlstm",
+                 "slstm")
+
+
+class _Recurrent(NamedTuple):
+    """A recurrent block's functions (its input is normed by norm1)."""
+    shapes: Callable      # (cfg, dtype) -> {name: (shape, dtype)}
+    init: Callable        # (gen, cfg, dtype) -> {name: tensor}
+    train: Callable       # (p, x, cfg) -> (out, state after the sequence)
+    decode: Callable      # (p, x, cfg, cache) -> out; the cache in place
+    cache: Callable       # (cfg, batch, dtype, device) -> zeroed state
+
+
+_RECURRENT = {
+    "mamba": _Recurrent(ssm_mod.mamba_shapes, ssm_mod.init_mamba,
+                        ssm_mod.mamba_train, ssm_mod.mamba_decode,
+                        ssm_mod.init_ssm_cache),
+    "mlstm": _Recurrent(xlstm_mod.mlstm_shapes, xlstm_mod.init_mlstm,
+                        xlstm_mod.mlstm_train, xlstm_mod.mlstm_decode,
+                        xlstm_mod.init_mlstm_cache),
+    "slstm": _Recurrent(xlstm_mod.slstm_shapes, xlstm_mod.init_slstm,
+                        xlstm_mod.slstm_train, xlstm_mod.slstm_decode,
+                        xlstm_mod.init_slstm_cache)}
 
 _LATER = {
-    "mamba": "ROADMAP.md queue 1: hybrid/ssm",
-    "shared_attn": "ROADMAP.md queue 1: hybrid/ssm",
-    "mlstm": "ROADMAP.md queue 1: xlstm",
-    "slstm": "ROADMAP.md queue 1: xlstm",
     "dec_attn_mlp": "ROADMAP.md queue 1: frontends and the encoder-decoder",
     "enc_attn_mlp": "ROADMAP.md queue 1: frontends and the encoder-decoder",
 }
@@ -94,9 +121,13 @@ def block_shapes(cfg, kind: str, dtype
                  ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """Parameter names, shapes and dtypes of one block, as `init_block`
     makes them (the model allocates from this before filling): every tensor
-    in `dtype` but the MoE router, which is f32."""
+    in `dtype` but the MoE router and Mamba's a_log, dt_bias and d_skip,
+    which are f32."""
     require_ported(kind)
-    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    d = cfg.d_model
+    if kind in _RECURRENT:
+        return {"norm1": ((d,), dtype), **_RECURRENT[kind].shapes(cfg, dtype)}
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     shapes = {"norm1": (d,), "wq": (d, h * hd), "wk": (d, hkv * hd),
               "wv": (d, hkv * hd), "wo": (h * hd, d)}
     if cfg.qk_norm:
@@ -117,6 +148,8 @@ def init_block(gen: torch.Generator, cfg, kind: str, dtype
     require_ported(kind)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype,   # noqa: E731
                               device=gen.device)
+    if kind in _RECURRENT:
+        return {"norm1": ones(), **_RECURRENT[kind].init(gen, cfg, dtype)}
     p = {"norm1": ones(), **attn.init_attention(gen, cfg, dtype)}
     if kind == "attn_moe":
         p["norm2"] = ones()
@@ -139,9 +172,13 @@ def _ffn(p, x, cfg, backend):
 
 
 def block_train(p, x, cfg, kind: str, positions, backend: str = "auto"):
-    """-> (x, {"k", "v"}): the prefill cache contribution of the block."""
+    """-> (x, cache contribution): {"k", "v"} of an attention block, the
+    state after the sequence of a recurrent one."""
     require_ported(kind)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, backend)
+    if kind in _RECURRENT:
+        out, cache = _RECURRENT[kind].train(p, h, cfg)
+        return x + out, cache
     a, (k, v) = attn.attention_train(p, h, cfg, positions, backend)
     return _ffn(p, x + a, cfg, backend), {"k": k, "v": v}
 
@@ -149,6 +186,8 @@ def block_train(p, x, cfg, kind: str, positions, backend: str = "auto"):
 def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
                      device) -> dict[str, torch.Tensor]:
     require_ported(kind)
+    if kind in _RECURRENT:
+        return _RECURRENT[kind].cache(cfg, batch, dtype, device)
     return attn.init_kv_cache(cfg, batch, cache_len, dtype, device)
 
 
@@ -156,6 +195,8 @@ def block_decode(p, x, cfg, kind: str, cache, pos, decode_mode: str = "tp",
                  backend: str = "auto"):
     require_ported(kind)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, backend)
+    if kind in _RECURRENT:
+        return x + _RECURRENT[kind].decode(p, h, cfg, cache), cache
     a, cache = attn.attention_decode(p, h, cfg, cache, pos, mode=decode_mode)
     return _ffn(p, x + a, cfg, backend), cache
 

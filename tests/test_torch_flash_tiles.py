@@ -38,34 +38,40 @@ def _tc_constant(name):
 
 def _tile(dh):
     """The tensor-core kernel's tiles at head dim `dh`, as `tc::Cfg<DH>`
-    compiles them: (keys a K/V tile, Dh columns a TMA box, dynamic shared
-    memory a block)."""
+    compiles them: (keys a K/V tile, Dh columns a TMA box, Dh padded to
+    whole boxes, dynamic shared memory a block)."""
     tc = _tc_source()
     at, eq, other = map(int, re.search(
         r"BKV = DH == (\d+) \? (\d+) : (\d+);", tc).groups())
     below, cap = map(int, re.search(r"BW = DH < (\d+) \? DH : (\d+);",
                                     tc).groups())
+    assert "DP = (DH + BW - 1) / BW * BW;" in tc
+    assert "NBOX = DP / BW;" in tc
     bkv = eq if dh == at else other
     bw = dh if dh < below else cap
+    dp = -(-dh // bw) * bw
     bq, stages = int(_tc_constant("BQ")), int(_tc_constant("STAGES"))
-    # Q, STAGES K and V tiles of Dh / BW boxes of 2 BW-byte rows, barriers,
+    # Q, STAGES K and V tiles of DP / BW boxes of 2 BW-byte rows, barriers,
     # 1024 bytes of slack for the swizzle's alignment
-    smem = (dh // bw) * 2 * bw * (bq + 2 * stages * bkv) + 64 + 1024
-    return bkv, bw, smem
+    smem = (dp // bw) * 2 * bw * (bq + 2 * stages * bkv) + 64 + 1024
+    return bkv, bw, dp, smem
 
 
 @pytest.mark.parametrize("dh", fa.HEAD_DIMS)
 def test_tile_table_fits_the_card(dh):
-    bkv, bw, smem = _tile(dh)
+    bkv, bw, dp, smem = _tile(dh)
     assert bkv == (64 if dh == 256 else 128)
     assert bkv % 16 == 0                 # whole wgmma k16 steps over keys
-    assert bw == min(dh, 64) and dh % bw == 0
+    assert dh % 16 == 0                  # whole k16 steps over Dh in Q K^T
+    # the boxes cover Dh; TMA zero-fills the padding (Dh 112: 16 columns)
+    assert bw == min(dh, 64) and dp % bw == 0 and 0 <= dp - dh < bw
+    assert dp in (16, 32, 64, 128, 256)  # an n of P V's wgmma dispatch
     # TMA's inner box is at most the swizzle span (32, 64 or 128 bytes)
     assert 2 * bw in (32, 64, 128)
     assert smem <= SMEM_PER_BLOCK
     # a consumer thread's O, S and bf16 P fragments, with room to spare
     consumer_regs = int(_tc_constant("CONSUMER_REGS"))
-    assert dh // 2 + bkv // 2 + bkv // 4 <= consumer_regs - 48
+    assert dp // 2 + bkv // 2 + bkv // 4 <= consumer_regs - 48
 
 
 def test_register_split_fits_the_block():
@@ -86,7 +92,8 @@ def _bytes(t, *dims):
 
 
 @pytest.mark.parametrize("b,h,s,dh", [(2, 8, 128, 128), (1, 4, 48, 16),
-                                      (3, 2, 384, 256), (4, 32, 16, 64)])
+                                      (3, 2, 384, 256), (4, 32, 16, 64),
+                                      (2, 4, 384, 112)])
 def test_tma_geometry_of_contiguous_views(b, h, s, dh):
     q = torch.zeros((b, h, s, dh), dtype=torch.bfloat16)
     g = fa.tma_geometry("q", q)
@@ -95,7 +102,8 @@ def test_tma_geometry_of_contiguous_views(b, h, s, dh):
 
 
 @pytest.mark.parametrize("b,s,h,dh", [(4, 4096, 32, 128), (2, 128, 8, 64),
-                                      (1, 48, 2, 32), (2, 16, 1, 16)])
+                                      (1, 48, 2, 32), (2, 16, 1, 16),
+                                      (4, 4096, 32, 112)])
 def test_tma_geometry_of_transposed_projections(b, s, h, dh):
     # attention_train passes (B, S, H, Dh) projections as (B, H, S, Dh) views
     q = torch.zeros((b, s, h, dh), dtype=torch.bfloat16).transpose(1, 2)
@@ -143,7 +151,8 @@ def test_rmsnorm_one_read_pack_counts_match_the_compiled_kernel():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "qwen3-8b", "granite-3-2b",
-                                  "phi4-mini-3.8b"])
+                                  "phi4-mini-3.8b", "zamba2-7b",
+                                  "xlstm-1.3b"])
 def test_dense_configs_take_the_one_read_kernel(arch):
     assert rn.one_read_packs(get_arch(arch).d_model, 2, True) > 0
 
