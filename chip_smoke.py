@@ -512,6 +512,8 @@ class Smoke:
         d2k, ik = dpmeans_assign(x, c, mask, cnt)
         torch.cuda.synchronize()
         m = mask & (torch.arange(c.shape[0], device=self.dev) < cnt)
+        # 16-bit inputs widened to f32, exactly as the kernel widens them
+        x, c = x.float(), c.float()
         d2p, ip = assign_ref(x, c, m)
         valid = torch.isfinite(d2p)
         check(torch.equal(torch.isfinite(d2k), valid), f"{name}: inf pattern")
@@ -550,18 +552,26 @@ class Smoke:
               "index_mismatches": int(mism.sum()), "near_tie_rows": n_near})
         return d2k, ik
 
-    def _time(self, name, x, c, mask, cnt, sibling=False):
+    def _time(self, name, x, c, mask, cnt, sibling=False, generic=False):
         """`dpmeans_assign` at one shape.  With `sibling`, `topk_stream` at
         k = 1 on the same inputs is timed beside it: the port's own kernel
-        for the same function (no PyTorch call computes it)."""
+        for the same function (no PyTorch call computes it).  With
+        `generic`, the generic kernel (`dpmeans_assign._generic`) too, as
+        `generic_ms`: the kernel that took wide widths before the wide
+        tile, on the same inputs in the same run."""
         torch = self.torch
-        from repro_torch.kernels.dpmeans_assign import dpmeans_assign, n_split
+        from repro_torch.kernels.dpmeans_assign import (
+            _generic, dpmeans_assign, n_split, tile_kernel)
         from repro_torch.kernels.ref import assign_ref
         from repro_torch.kernels.topk_stream import topk_stream
         m = mask & (torch.arange(c.shape[0], device=self.dev) < cnt)
         n, d = x.shape
         active = min(int(cnt), c.shape[0])
         sms = torch.cuda.get_device_properties(0).multi_processor_count
+        meta = {}
+        if generic:
+            meta["generic_ms"] = _queued_ms(
+                torch, lambda: _generic(x, c, mask, cnt))[0]
         self._time_kernel(
             "dpmeans_assign", name,
             lambda: dpmeans_assign(x, c, mask, cnt),
@@ -571,7 +581,8 @@ class Smoke:
             sibling=(lambda: topk_stream(x, c, mask, cnt, 1)) if sibling
             else None,
             n=n, k=c.shape[0], d=d, count=int(cnt),
-            n_split=n_split(n, c.shape[0], d, sms))
+            n_split=n_split(n, c.shape[0], d, sms),
+            tile_kernel=tile_kernel(d), **meta)
 
     def _time_kernel(self, kernel_name, shape, kernel, plain, *, flops,
                      nbytes, peak_flops=PEAK_F32_FLOPS, library=None,
@@ -688,6 +699,7 @@ class Smoke:
             check(torch.equal(d2t[:, 0], d2b) and torch.equal(it[:, 0], ib),
                   f"{name}: topk_stream k=1 == dpmeans_assign, bitwise")
         self._assign_lowp()
+        self._assign_wide()
         # What the wrapper refuses.
         x, c, mask, cnt = outs["retrieval"][0]
         for what, call in (
@@ -712,6 +724,12 @@ class Smoke:
         self._time("retrieval", *outs["retrieval"][0], sibling=True)
         self._time("score", *outs["score"][0], sibling=True)
         self._time("routing", *outs["routing"][0], sibling=True)
+        # the wide tile at curation's shape beside the generic one, and the
+        # generic tile at the D = 8 of the examples and serve_clusters
+        self._time("wide", *self._inputs(256, 512, 2048, count=512,
+                                         seed=self.seed + 70), generic=True)
+        self._time("d8", *self._inputs(256, 512, 8, count=512,
+                                       seed=self.seed + 71))
         self._topk_kernels()
         self._multiprobe_kernels()
 
@@ -766,6 +784,105 @@ class Smoke:
                       "n": n, "k": k, "d": d, "max_abs_err": err,
                       "index_mismatches": int(mism.sum()),
                       "near_tie_rows": int(near.sum())})
+
+    def _assign_wide(self):
+        """The wide tile (D >= 64, a multiple of 8) against the plain
+        version (`_compare`) and, bit for bit, against the generic tile
+        (`dpmeans_assign._generic`, the same pair definition): D 64, 768,
+        2048 and 4096 at rows 1, 63, 256 and 2048 over 512 slots (count
+        500: a ragged last tile, with holes); at each D count 0, count 1,
+        duplicated centers (the lower id must win), f16 and bf16; at 1000
+        (a last chunk of the row shorter than the ring's) f32 and f16; and
+        at 768 centers and x that do not start on 16 bytes (plain loads,
+        not cp.async).  At D = 2048: each row alone and the batch reversed
+        give the batch's bits, and the result equals the first column of
+        `topk_stream` at k = 8 (its generic tile, untouched) and at k = 1
+        bit for bit."""
+        torch = self.torch
+        from repro_torch.kernels.dpmeans_assign import (
+            _generic, dpmeans_assign, tile_kernel)
+        from repro_torch.kernels.topk_stream import topk_stream
+        cases = 0
+
+        def same_as_generic(name, x, c, mask, cnt, got):
+            want = _generic(x, c, mask, cnt)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                               want[1]),
+                  f"{name}: wide tile == generic tile, bitwise")
+
+        for i, d in enumerate((64, 768, 2048, 4096)):
+            check(tile_kernel(d) == "wide", f"D {d} takes the wide tile")
+            for n in (1, 63, 256, 2048):
+                name = f"wide d{d} n{n}"
+                inp = self._inputs(n, 512, d, count=500, holes=True,
+                                   seed=self.seed + 400 + 10 * i + n % 7)
+                same_as_generic(name, *inp, self._compare(name, *inp))
+                cases += 1
+            for tag, kw in (("count0", dict(count=0)),
+                            ("count1", dict(count=1)),
+                            ("duplicates", dict(count=512, dup=True))):
+                name = f"wide d{d} {tag}"
+                inp = self._inputs(256, 512, d, seed=self.seed + 440 + i,
+                                   **kw)
+                got = self._compare(name, *inp)
+                same_as_generic(name, *inp, got)
+                cases += 1
+                if tag == "count0":
+                    check(bool(torch.isinf(got[0]).all())
+                          and bool((got[1] == -1).all()), f"{name}: (inf, -1)")
+                elif tag == "count1":
+                    check(bool((got[1] == 0).all()), f"{name}: slot 0")
+                else:
+                    check(bool((got[1] < 256).all()),
+                          f"{name}: lowest index wins")
+            for dt in (torch.float16, torch.bfloat16):
+                x, c, mask, cnt = self._inputs(256, 512, d, count=500,
+                                               holes=True,
+                                               seed=self.seed + 450 + i)
+                x, c = x.to(dt), c.to(dt)
+                name = f"wide d{d} {str(dt).replace('torch.', '')}"
+                same_as_generic(name, x, c, mask, cnt,
+                                self._compare(name, x, c, mask, cnt))
+                cases += 1
+        # D = 1000: a last chunk shorter than the ring's (zero-filled)
+        for dt in (torch.float32, torch.float16):
+            x, c, mask, cnt = self._inputs(256, 512, 1000, count=500,
+                                           holes=True, seed=self.seed + 455)
+            x, c = x.to(dt), c.to(dt)
+            name = f"wide d1000 {str(dt).replace('torch.', '')}"
+            same_as_generic(name, x, c, mask, cnt,
+                            self._compare(name, x, c, mask, cnt))
+            cases += 1
+        # x and centers one element past a 16-byte boundary
+        x, c, mask, cnt = self._inputs(100, 512, 768, count=500, holes=True,
+                                       unaligned=True, seed=self.seed + 460)
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(100, 768)
+        check(x.data_ptr() % 16 != 0 and c.data_ptr() % 16 != 0,
+              "wide unaligned: the views' alignment")
+        same_as_generic("wide unaligned", x, c, mask, cnt,
+                        self._compare("wide unaligned", x, c, mask, cnt))
+        # D = 2048: row independence, and topk_stream's first column
+        x, c, mask, cnt = self._inputs(256, 512, 2048, count=500, holes=True,
+                                       seed=self.seed + 470)
+        d2b, ib = dpmeans_assign(x, c, mask, cnt)
+        alone = [dpmeans_assign(x[r:r + 1].contiguous(), c, mask, cnt)
+                 for r in range(x.shape[0])]
+        check(torch.equal(torch.cat([a[0] for a in alone]), d2b)
+              and torch.equal(torch.cat([a[1] for a in alone]), ib),
+              "wide d2048 row independence: rows alone == batch, bitwise")
+        d2r, ir = dpmeans_assign(torch.flip(x, [0]).contiguous(), c, mask, cnt)
+        check(torch.equal(torch.flip(d2r, [0]), d2b)
+              and torch.equal(torch.flip(ir, [0]), ib),
+              "wide d2048 row independence: reversed batch == batch, bitwise")
+        for kk in (8, 1):
+            d2t, it = topk_stream(x, c, mask, cnt, kk)
+            check(torch.equal(d2t[:, 0], d2b) and torch.equal(it[:, 0], ib),
+                  f"wide d2048: topk_stream k={kk} first column == "
+                  "dpmeans_assign, bitwise")
+        emit({"phase": "kernels", "kernel": "dpmeans_assign", "tile": "wide",
+              "cases": cases + 1, "equal_to_generic_bitwise": True,
+              "row_independent": True, "topk8_first_column_bitwise": True,
+              "max_abs_err": self.max_abs_err["dpmeans_assign"]})
 
     def _ptxas_checked(self, name: str) -> list[dict]:
         """ptxas's registers and spills for every kernel of the `name`
@@ -2529,15 +2646,17 @@ class Smoke:
 
     def _compiled_code(self):
         """ptxas's registers and spills for every kernel of the flash and
-        rmsnorm libraries (from the build log), and the flash library's
-        SASS: the tensor-core kernel must contain wgmma (HGMMA) and TMA
-        loads (UTMALDG), else the phase fails."""
+        rmsnorm libraries (from the build log; a spill in rmsnorm's fails
+        the phase), and the flash library's SASS: the tensor-core kernel
+        must contain wgmma (HGMMA) and TMA loads (UTMALDG), else the phase
+        fails."""
         from repro_torch.kernels import _build
         paths = _build.build_all(["flash_attention", "rmsnorm"])
-        res = {}
-        for name in ("flash_attention", "rmsnorm"):
-            res[name] = _ptxas_summary(
-                _build.BUILD_LOG.get(name, {}).get("ptxas", ""))
+        res = {"flash_attention": _ptxas_summary(
+            _build.BUILD_LOG.get("flash_attention", {}).get("ptxas", "")),
+            # rmsnorm's kernels (the one-read backward's 64 registers among
+            # them) must not spill
+            "rmsnorm": self._ptxas_checked("rmsnorm")}
         cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                                  "cuobjdump")
         sass = subprocess.run([cuobjdump, "-sass",
@@ -2689,19 +2808,24 @@ class Smoke:
     def _bwd_kernels(self):
         """The backward kernels of the training path against their plain
         versions (`ref.rmsnorm_bwd_ref`, `ref.swiglu_bwd_ref`): rmsnorm's
-        in f32, bf16 and f16 at granite-3-2b's and qwen3-4b's training
-        widths, at decode rows, at a 3-d batch and at widths off the pack
-        (33, 1000); swiglu's in f32 and bf16 at both models' d_ff, at
-        decode rows, odd sizes and a misaligned view.  Then two calls give
-        the same bits, each row's dx (and each element's swiglu gradient)
-        does not depend on the other rows, what the wrappers refuse, and
-        their times at the training shapes beside the bound, the plain
-        version and, for rmsnorm, `torch.autograd.grad` through
+        in f32, bf16 and f16 at every width of its one-read kernel
+        (granite-3-2b's, qwen3-4b's and zamba2-7b's training widths among
+        them, and fewer rows than its grid's blocks), at decode rows, at a
+        3-d batch, at widths off the pack (33, 1000) and on a misaligned
+        view (the two-sweep kernel), and at the dense widths the two-sweep
+        kernel too (`rmsnorm._two_sweep`); swiglu's in f32 and bf16 at
+        both models' d_ff, at decode rows, odd sizes and a misaligned view.
+        Then two calls give the same bits, each row's dx (at d 2048 and
+        3584; and each element's swiglu gradient) does not depend on the
+        other rows, what the wrappers refuse, and their times at the
+        training shapes beside the bound, the plain version, the two-sweep
+        kernel and, for rmsnorm, `torch.autograd.grad` through
         `F.rms_norm`."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels import ref
-        from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+        from repro_torch.kernels.rmsnorm import (
+            ONE_READ_WIDTHS, _two_sweep, bwd_one_read_threads, rmsnorm_bwd)
         from repro_torch.kernels.swiglu import swiglu_bwd
         g = torch.Generator(device=self.dev).manual_seed(self.seed + 320)
         f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
@@ -2712,13 +2836,36 @@ class Smoke:
                     * mul).to(dt)
         for dt in (f32, bf16, f16):
             for shape in ((16384, 2048), (16384, 2560), (16384, 3584),
+                          (263, 3072), (1000, 4096), (100, 3584),
                           (4, 2560), (2, 3, 2048), (7, 33), (333, 1000)):
                 x, dy = randn(shape, dt), randn(shape, dt)
                 w = randn(shape[-1:], dt)
                 dx, dw = rmsnorm_bwd(x, w, dy, 1e-6)
                 px, pw = ref.rmsnorm_bwd_ref(x, w, dy, 1e-6)
-                self._lm_agree("rmsnorm_bwd", f"{tags[dt]} {shape} dx", dx, px)
-                self._lm_agree("rmsnorm_bwd", f"{tags[dt]} {shape} dw", dw, pw)
+                kind = "one read" if bwd_one_read_threads(
+                    shape[-1], True) else "two sweeps"
+                check(bool(bwd_one_read_threads(shape[-1], True))
+                      == (shape[-1] in ONE_READ_WIDTHS),
+                      f"rmsnorm_bwd: width {shape[-1]} takes the {kind}")
+                self._lm_agree("rmsnorm_bwd", f"{tags[dt]} {shape} dx "
+                               f"{kind}", dx, px)
+                self._lm_agree("rmsnorm_bwd", f"{tags[dt]} {shape} dw "
+                               f"{kind}", dw, pw)
+                if shape[-1] in ONE_READ_WIDTHS and shape[0] in (263, 1000):
+                    tx, tw = _two_sweep(x, w, dy, 1e-6)
+                    self._lm_agree("rmsnorm_bwd", f"{tags[dt]} {shape} dx "
+                                   "two sweeps", tx, px)
+                    self._lm_agree("rmsnorm_bwd", f"{tags[dt]} {shape} dw "
+                                   "two sweeps", tw, pw)
+            # a view one element past a 16-byte boundary: two sweeps
+            flat = randn((2 * 2048 + 1,), dt)
+            x, dy = flat[1:].view(2, 2048), randn((2, 2048), dt)
+            w = randn((2048,), dt)
+            check(x.data_ptr() % 16 != 0, "rmsnorm_bwd: the view's alignment")
+            dx, dw = rmsnorm_bwd(x, w, dy, 1e-6)
+            px, pw = ref.rmsnorm_bwd_ref(x, w, dy, 1e-6)
+            self._lm_agree("rmsnorm_bwd", f"{tags[dt]} misaligned dx", dx, px)
+            self._lm_agree("rmsnorm_bwd", f"{tags[dt]} misaligned dw", dw, pw)
         for dt in (f32, bf16):
             for shape in ((16384, 8192), (16384, 9728), (16384, 14336),
                           (4, 9728), (5, 17)):
@@ -2754,6 +2901,21 @@ class Smoke:
                   and torch.equal(dur[0], du[r]),
                   f"backward kernels: row {r} alone gives other bits")
         del dx2, dw2, dg2, du2
+        # zamba2-7b's width: repeat, rows alone and a slice of the batch
+        x3, w3, dy3 = randn((16384, 3584), bf16), randn((3584,), bf16), \
+            randn((16384, 3584), bf16)
+        dx3, dw3 = rmsnorm_bwd(x3, w3, dy3)
+        dx4, dw4 = rmsnorm_bwd(x3, w3, dy3)
+        check(torch.equal(dx3, dx4) and torch.equal(dw3, dw4),
+              "rmsnorm_bwd d 3584: two calls give the same bits")
+        for r in (0, 7777, 16383):
+            check(torch.equal(rmsnorm_bwd(x3[r:r + 1], w3, dy3[r:r + 1])[0][0],
+                              dx3[r]),
+                  f"rmsnorm_bwd d 3584: row {r} alone gives other bits")
+        check(torch.equal(rmsnorm_bwd(x3[100:400], w3, dy3[100:400])[0],
+                          dx3[100:400]),
+              "rmsnorm_bwd d 3584: rows 100-399 alone give other bits")
+        del x3, w3, dy3, dx3, dw3, dx4, dw4
         wg = w.clone().requires_grad_(True)
         for what, call, exc in (
                 ("swiglu_bwd f16", lambda: swiglu_bwd(
@@ -2781,6 +2943,8 @@ class Smoke:
         for dt in (bf16, f32, f16):
             # zamba2-7b's d_model 3584 in bf16
             for d in (2048, 2560) + ((3584,) if dt == bf16 else ()):
+                check(bwd_one_read_threads(d, True) == d // 8,
+                      f"rmsnorm_bwd: (16384, {d}) takes the one-read kernel")
                 x, dy = randn((16384, d), dt), randn((16384, d), dt)
                 w = randn((d,), dt)
                 xg = x.clone().requires_grad_(True)
@@ -2797,7 +2961,10 @@ class Smoke:
                         F.rms_norm(xg, (d,), wg, 1e-6), (xg, wg), dy),
                     x=[16384, d], dtype=str(dt).replace("torch.", ""),
                     library_call="torch.autograd.grad through F.rms_norm "
-                                 "(its forward included)")
+                                 "(its forward included)",
+                    kernel_design="one read",
+                    two_sweep_ms=_queued_ms(
+                        torch, lambda: _two_sweep(x, w, dy, 1e-6))[0])
                 del x, dy, w, xg, wg
         for dt in (bf16, f32):
             # zamba2-7b's d_ff 14336 in bf16
@@ -3974,7 +4141,8 @@ class Smoke:
             raise CheckFailed(f"serve_clusters: audit failed: {e}")
         seconds = time.perf_counter() - t0
         launches = {"dpmeans_assign": ops.ASSIGN_LAUNCHES,
-                    "topk_stream": ops.TOPK_LAUNCHES}
+                    "topk_stream": ops.TOPK_LAUNCHES,
+                    "dpmeans_assign_by_tile": dict(ops.ASSIGN_TILE_LAUNCHES)}
         # -----------------------------------------------------------------
         self.path_launches["serve_clusters"] = launches
         q, f = rec["qos_ab"]["qos"], rec["qos_ab"]["fifo"]
@@ -4064,7 +4232,8 @@ class Smoke:
         t0 = time.perf_counter()
         rep = curate(embeds, lam=lam, pb=CUR_PB, k_max=CUR_K_MAX)
         curate_s = time.perf_counter() - t0
-        counts = {"dpmeans_assign": ops.ASSIGN_LAUNCHES, **self._lm_counts()}
+        counts = {"dpmeans_assign": ops.ASSIGN_LAUNCHES, **self._lm_counts(),
+                  "dpmeans_assign_by_tile": dict(ops.ASSIGN_TILE_LAUNCHES)}
         # -----------------------------------------------------------------
         self.path_launches["curation"] = counts
         n_seq = CUR_BATCHES * CUR_BATCH
@@ -4074,9 +4243,11 @@ class Smoke:
               and counts["swiglu"] == layers * CUR_BATCHES
               and counts["rmsnorm"] == counts["rmsnorm_one_read"]
               == 2 * layers * CUR_BATCHES
-              and counts["dpmeans_assign"] == epochs > 0,
+              and counts["dpmeans_assign"] == epochs > 0
+              and counts["dpmeans_assign_by_tile"]["wide"] == epochs,
               f"curation: launches {counts} for {CUR_BATCHES} forwards of "
-              f"{layers} layers and {epochs} epochs")
+              f"{layers} layers and {epochs} epochs (every propose on the "
+              "wide tile)")
         check(tuple(embeds.shape) == (n_seq, cfg.d_model)
               and embeds.dtype == torch.float32
               and bool(torch.isfinite(embeds).all()),
@@ -4177,8 +4348,10 @@ class Smoke:
     def _curation_kernels(self, embeds, rep):
         """The four kernels at curation's shapes against their plain
         versions (dpmeans_assign on the real embeddings and pool at
-        D = 2048, the general tile path, and on random inputs there), and
-        their times: dpmeans_assign (256, 512, 2048) f32, flash (16, 32/8,
+        D = 2048, the wide tile, and on random inputs there; each also bit
+        for bit against the generic tile and `topk_stream`'s first column
+        at k = 8), and their times: dpmeans_assign (256, 512, 2048) f32
+        beside the generic tile, flash (16, 32/8,
         256, 64) bf16 causal against SDPA, rmsnorm (4096, 2048) bf16
         against `F.rms_norm`, swiglu (4096, 8192) bf16."""
         torch = self.torch
@@ -4187,17 +4360,31 @@ class Smoke:
         from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.rmsnorm import rmsnorm
         from repro_torch.kernels.swiglu import swiglu
+        from repro_torch.kernels.dpmeans_assign import _generic
+        from repro_torch.kernels.topk_stream import topk_stream
         pool = rep.result.pool
         cnt = pool.count.reshape(1).to(torch.int32)
         xe = embeds[:CUR_PB].contiguous()
-        self._compare("curation_propose", xe, pool.centers, pool.mask, cnt)
-        self._compare("curation_propose_last_epoch",
-                      embeds[-CUR_PB:].contiguous(), pool.centers,
-                      pool.mask, cnt)
+        xl = embeds[-CUR_PB:].contiguous()
         x, c, mask, rcnt = self._inputs(CUR_PB, CUR_K_MAX, 2048,
                                         count=int(pool.count), seed=19)
-        self._compare("d2048_random", x, c, mask, rcnt)
-        self._time("curation", xe, pool.centers, pool.mask, cnt)
+        for name, args in (
+                ("curation_propose", (xe, pool.centers, pool.mask, cnt)),
+                ("curation_propose_last_epoch",
+                 (xl, pool.centers, pool.mask, cnt)),
+                ("d2048_random", (x, c, mask, rcnt))):
+            d2k, ik = self._compare(name, *args)
+            # the wide tile: the generic tile's bits, and topk_stream's
+            # first column at k = 8 (its generic tile)
+            d2g, ig = _generic(*args)
+            d2t, it = topk_stream(*args, 8)
+            check(torch.equal(d2k, d2g) and torch.equal(ik, ig),
+                  f"{name}: wide tile == generic tile, bitwise")
+            check(torch.equal(d2k, d2t[:, 0]) and torch.equal(ik, it[:, 0]),
+                  f"{name}: topk_stream k=8 first column == dpmeans_assign, "
+                  "bitwise")
+        self._time("curation", xe, pool.centers, pool.mask, cnt,
+                   generic=True)
         g = torch.Generator(device=self.dev).manual_seed(self.seed + 1900)
         bf16 = torch.bfloat16
 
@@ -4290,7 +4477,8 @@ class Smoke:
                   "topk_multiprobe_stream": ops.TOPK_MP_LAUNCHES,
                   **self._lm_counts(),
                   "rmsnorm_bwd": ops.RMSNORM_BWD_LAUNCHES,
-                  "swiglu_bwd": ops.SWIGLU_BWD_LAUNCHES}
+                  "swiglu_bwd": ops.SWIGLU_BWD_LAUNCHES,
+                  "dpmeans_assign_by_tile": dict(ops.ASSIGN_TILE_LAUNCHES)}
         # -----------------------------------------------------------------
         self.path_launches["examples"] = counts
         # (the examples' language models take chunked attention, as the
@@ -4891,6 +5079,12 @@ class Smoke:
                 row["launches_retrieval"] = self.retrieval_launches
                 row["launches_ofl"] = self.ofl_launches
                 row["launches_fig3"] = self.fig3_launches
+                # by the kernel the width chose, on the paths that run
+                # more than D = 16 (every other path runs the fast tile)
+                row["launches_by_tile"] = {
+                    path: counts["dpmeans_assign_by_tile"]
+                    for path, counts in self.path_launches.items()
+                    if "dpmeans_assign_by_tile" in counts}
             if name.endswith("_bwd"):
                 row["backward_of"] = replaces
             if name in ("flash_attention", "rmsnorm", "swiglu"):

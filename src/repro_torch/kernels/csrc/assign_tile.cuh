@@ -6,7 +6,12 @@
 // by construction.
 //
 // The design (center range split over blocks, the 64-bit key merge, the
-// cp.async ring at D = 16) is described in dpmeans_assign.cu.
+// cp.async ring at D = 16, the wide tile for D >= 64) is described in
+// dpmeans_assign.cu.  Three kernels, chosen by width alone (the wrapper's
+// `dpmeans_assign.block_k` mirrors it): `fast` at D = 16, `wide` at D >= 64
+// with D a multiple of 8 (`wide::takes`: rows of every element type are
+// then whole 16-byte pieces), `generic` at every other width (D = 8 of the
+// examples and `serve_clusters`, odd widths), unchanged in code and bits.
 //
 // Storage types.  x and the centers are f32, f16 or bf16, one type per
 // call.  Every value is widened to f32 where it is read into registers
@@ -86,7 +91,9 @@ __device__ __forceinline__ int active_count(const int* count, int k) {
 // and the minimum does not depend on the order of the atomics.  The last
 // block of the row block to take its ticket unpacks the keys, writes the
 // output, and leaves the keys all ones and the ticket 0 for the next launch.
-// Every thread of the block calls this.
+// Every thread of the block calls this; ROWS is the block's query rows (BM,
+// or the wide kernel's 16), and the block has at least ROWS threads.
+template <int ROWS = BM>
 __device__ __forceinline__ void finish(const float* rd, const int* ri,
                                        int* s_last, float* __restrict__ d2_out,
                                        int* __restrict__ idx_out,
@@ -94,7 +101,7 @@ __device__ __forceinline__ void finish(const float* rd, const int* ri,
                                        int row0, int n) {
   const int tid = threadIdx.x;
   const int r = row0 + tid;
-  const bool mine = tid < BM && r < n;
+  const bool mine = tid < ROWS && r < n;
   if (gridDim.y == 1) {
     if (mine) {
       d2_out[r] = rd[tid];
@@ -531,6 +538,258 @@ dpmeans_assign_generic_kernel(const T* __restrict__ x, const T* __restrict__ c,
 
 }  // namespace generic
 
+// ------------------------------------------------------------ wide D
+// D >= 64, a multiple of 8 (curation's 2048).  What bounds it: 2 N count D
+// FMAs against one read of x and the active centers; at (256, 512, 2048)
+// f32 that is 0.54 GFLOP (8.0 us at the 67 TFLOP/s f32 rate) against 5.2
+// MB (1.6 us).  Each pair's dot product is one dependent chain of D fmaf,
+// so the shape offers only 131,072 chains, about 8 a lane of the card's
+// 132 x 128 FP32 lanes: a lane's register tile can hold no more than 8
+// pairs, and 8 pairs (4 rows x 2 centers) reuse each value loaded from
+// shared memory 1.33 times, so shared-memory bandwidth, not the FMA rate,
+// bounds the tile loop.  The design:
+//  - Small tiles, so that such a shape fills the card: 16 query rows x 32
+//    centers a block of 64 threads (two warps), each thread a 4 x 2
+//    register tile; with the center range split a tile a block
+//    (`dpmeans_assign.n_split`: about four blocks an SM), (256, 512, 2048)
+//    runs 16 x 16 = 256 blocks on the 132 SMs.  Splits merge through the
+//    64-bit keys and tickets as the other kernels' do (`finish<16>`).
+//  - Rows staged in 256-byte chunks (64 f32 or 128 f16 / bf16 values of D)
+//    through a 3-stage ring in shared memory filled by 16-byte cp.async
+//    copies (plain loads where x or the centers do not start on 16 bytes:
+//    the same bits); the 16 x rows and 32 center rows of a stage are
+//    padded to 272 bytes.  A block's sequence of (tile, chunk) steps runs
+//    through one ring, so the next tile's first chunks load while this
+//    tile's last ones are consumed.  16-bit rows are widened on the way
+//    from shared memory into registers.
+//  - Vector shared loads feed the register tile: a warp's lanes are 4 row
+//    groups x 8 center groups; lane (rg, cg) holds rows rg + 4 i (i < 4)
+//    and centers 16 w + cg + 8 q (q < 2).  Per four values of D a lane
+//    loads four x vectors (each broadcast to the 8 lanes of a row group)
+//    and two center vectors, 6 loads for 32 FMAs; the 272-byte stride puts
+//    the 4 or 8 rows of a load in distinct banks.
+//  - ||x||^2 and ||c||^2 come from the staged chunks, no prologue: thread
+//    tid < 32 chains ||c||^2 of the tile's center tid, threads 32-47 on the
+//    split's first tile ||x||^2 of row tid - 32, one fmaf chain each beside
+//    the dot products (threads 48-63 chain a copy, unused, so that every
+//    lane runs the same code).
+//  - The inner loop is straight-line code over a chunk (no branch between
+//    its loads and FMAs).  A chunk past the end of a row (D not a multiple
+//    of the chunk) is zero-filled by cp.async: a product of zeros adds
+//    +0 to an fmaf chain, which leaves a non-zero sum as it is and turns a
+//    -0 dot product into +0, and `combine` gives the same distance for
+//    either zero, so the distances keep their bits.
+// x is staged again for each of a split's tiles: 16 rows of D values
+// cannot stay in shared memory beside the ring at D = 4096 (256 KB); a
+// split that owns one tile (curation's shape) stages it once.
+namespace wide {
+
+constexpr int ROWS = 16;           // query rows per block
+constexpr int BK = 32;             // centers per tile
+constexpr int NT = 64;             // threads: two warps, side by side on K
+constexpr int RM = 4;              // rows a thread: rg + 4 i
+constexpr int RK = 2;              // centers a thread: 16 w + cg + 8 q
+constexpr int CB = 256;            // bytes of a row a stage holds
+constexpr int RB = CB + 16;        // padded row stride in bytes
+constexpr int PR = CB / 16;        // 16-byte pieces of a row a stage
+constexpr int NS = 3;              // stages of the ring
+constexpr int SR = ROWS + BK;      // staged rows a stage: x, then centers
+
+__host__ __device__ constexpr bool takes(int d) {
+  return d >= 64 && d % 8 == 0;
+}
+
+struct Smem {
+  alignas(16) unsigned char ring[NS][SR][RB];
+  float x2s[ROWS];
+  float c2s[BK];
+  float rd[2][ROWS];
+  int ri[2][ROWS];
+  int last;
+};
+
+// Start the copies of chunk `ch` of center tile `t` (its rows below
+// `active`) and of the block's x rows (below n) into stage `st`, pieces
+// past the end of a row as zeros; rows past those are left as they are
+// (their products are never selected).  Thread tid copies piece tid % PR
+// of rows tid / PR + 4 m.
+template <typename T>
+__device__ __forceinline__ void load_stage(Smem& s, int st, int t, int ch,
+                                           const T* __restrict__ x,
+                                           const T* __restrict__ c, int row0,
+                                           int n, int active, int d,
+                                           bool aligned) {
+  constexpr int E = 16 / (int)sizeof(T);          // elements a piece
+  const int q = threadIdx.x % PR;
+  const int e = ch * (CB / (int)sizeof(T)) + q * E;   // its first element
+  const bool have = e < d;       // d a multiple of 8: whole pieces
+  const int k0 = t * BK;
+#pragma unroll
+  for (int r = threadIdx.x / PR; r < SR; r += NT / PR) {
+    const T* row;
+    if (r < ROWS) {
+      if (row0 + r >= n) continue;
+      row = x + (size_t)(row0 + r) * d;
+    } else {
+      if (k0 + r - ROWS >= active) continue;
+      row = c + (size_t)(k0 + r - ROWS) * d;
+    }
+    unsigned char* dst = &s.ring[st][r][q * 16];
+    if (aligned) {
+      const unsigned sa = (unsigned)__cvta_generic_to_shared(dst);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
+                   "l"(have ? row + e : row), "r"(have ? 16 : 0));
+    } else {
+      T* out = reinterpret_cast<T*>(dst);
+#pragma unroll
+      for (int i = 0; i < E; ++i) out[i] = have ? row[e + i] : T(0.f);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+dpmeans_assign_wide_kernel(const T* __restrict__ x, const T* __restrict__ c,
+                           const uint8_t* __restrict__ mask,
+                           const int* __restrict__ count,
+                           float* __restrict__ d2_out,
+                           int* __restrict__ idx_out,
+                           unsigned long long* keys, int* tickets, int n,
+                           int k, int d, int aligned) {
+  constexpr int VS = 4 * (int)sizeof(T);            // bytes of 4 values
+  constexpr int STEPS = CB / VS;                    // 4-value steps a chunk
+  __shared__ Smem s;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const int rg = lane >> 3;
+  const int cg = lane & 7;
+  const int row0 = blockIdx.x * ROWS;
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
+  const bool al = aligned != 0;
+
+  const int active = active_count(count, k);
+  const int n_tiles = (active + BK - 1) / BK;
+  const int mine = split < n_tiles ? (n_tiles - 1 - split) / n_split + 1 : 0;
+  const int chunks = (d * (int)sizeof(T) + CB - 1) / CB;
+  const int steps = mine * chunks;
+  // the staged row this thread's norm chain reads: center tid, x row
+  // tid - 32 (threads 48-63: a copy of 32-47's)
+  const int norm_row = tid < BK ? ROWS + tid : (tid - BK) % ROWS;
+
+  float bd[RM];
+  int bi[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    bd[i] = CUDART_INF_F;
+    bi[i] = INT32_MAX;
+  }
+
+#pragma unroll
+  for (int p = 0; p < NS - 1; ++p) {
+    if (p < steps)
+      load_stage(s, p, split + (p / chunks) * n_split, p % chunks, x, c, row0,
+                 n, active, d, al);
+    fast::cp_async_commit();
+  }
+
+  float acc[RM][RK];
+  float nacc = 0.f;
+  int j = 0, ch = 0;     // this step's tile (of the split) and chunk
+  for (int it = 0; it < steps; ++it) {
+    fast::cp_async_wait<NS - 2>();   // this thread's copies of step it
+    __syncthreads();                 // everyone's; stage (it - 1) % NS free
+    {
+      const int nx = it + NS - 1;
+      if (nx < steps)
+        load_stage(s, nx % NS, split + (nx / chunks) * n_split, nx % chunks,
+                   x, c, row0, n, active, d, al);
+      fast::cp_async_commit();
+    }
+    if (ch == 0) {
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int q = 0; q < RK; ++q) acc[i][q] = 0.f;
+      nacc = 0.f;
+    }
+    const int st = it % NS;
+    const unsigned char* xr = &s.ring[st][rg][0];
+    const unsigned char* cr = &s.ring[st][ROWS + 16 * w + cg][0];
+    const unsigned char* nr = &s.ring[st][norm_row][0];
+#pragma unroll
+    for (int g = 0; g < STEPS; ++g) {
+      float4 a[RM], b[RK];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+        a[i] = load4(reinterpret_cast<const T*>(xr + 4 * i * RB + g * VS));
+#pragma unroll
+      for (int q = 0; q < RK; ++q)
+        b[q] = load4(reinterpret_cast<const T*>(cr + 8 * q * RB + g * VS));
+      const float4 v = load4(reinterpret_cast<const T*>(nr + g * VS));
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int q = 0; q < RK; ++q) {
+          acc[i][q] = fmaf(a[i].x, b[q].x, acc[i][q]);
+          acc[i][q] = fmaf(a[i].y, b[q].y, acc[i][q]);
+          acc[i][q] = fmaf(a[i].z, b[q].z, acc[i][q]);
+          acc[i][q] = fmaf(a[i].w, b[q].w, acc[i][q]);
+        }
+      nacc = fmaf(v.x, v.x, nacc);
+      nacc = fmaf(v.y, v.y, nacc);
+      nacc = fmaf(v.z, v.z, nacc);
+      nacc = fmaf(v.w, v.w, nacc);
+    }
+    if (++ch == chunks) {
+      // The tile's last chunk: share the norms, then select.
+      if (tid < BK) s.c2s[tid] = nacc;
+      else if (tid < BK + ROWS && j == 0) s.x2s[tid - BK] = nacc;
+      __syncthreads();
+      const int k0 = (split + j * n_split) * BK;
+#pragma unroll
+      for (int q = 0; q < RK; ++q) {
+        const int kc = 16 * w + cg + 8 * q;
+        const int gk = k0 + kc;
+        const bool valid = gk < active && mask[gk] != 0;
+        const float cc = s.c2s[kc];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float v = combine(s.x2s[rg + 4 * i], cc, acc[i][q]);
+          lex_min(bd[i], bi[i], valid ? v : CUDART_INF_F,
+                  valid ? gk : INT32_MAX);
+        }
+      }
+      ch = 0;
+      ++j;
+    }
+  }
+  fast::cp_async_wait<0>();
+
+  // Each row over the 8 lanes of its row group, then over the two warps.
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, bd[i], off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi[i], off);
+      lex_min(bd[i], bi[i], od, oi);
+    }
+    if (cg == 0) {
+      s.rd[w][rg + 4 * i] = bd[i];
+      s.ri[w][rg + 4 * i] = bi[i];
+    }
+  }
+  __syncthreads();
+  if (tid < ROWS) lex_min(s.rd[0][tid], s.ri[0][tid], s.rd[1][tid],
+                          s.ri[1][tid]);
+  finish<ROWS>(s.rd[0], s.ri[0], &s.last, d2_out, idx_out, keys, tickets,
+               row0, n);
+}
+
+}  // namespace wide
+
 // Set a kernel's dynamic shared-memory limit once per device (a benign race
 // between host threads sets it twice).
 template <auto Kernel>
@@ -551,15 +810,26 @@ __host__ int smem_attr(int bytes) {
 
 // One nearest-center launch on inputs of element type T.  With n_split > 1,
 // keys holds at least n 64-bit keys that are all ones and tickets at least
-// ceil(n/64) ints that are 0; each launch leaves them so again.  D = 16
-// takes the fast kernel, tiles of 256 centers; other widths the generic
-// one, tiles of 64.  Returns a CUDA error code (0 on success).
+// ceil(n/16) ints that are 0; each launch leaves them so again.  D = 16
+// takes the fast kernel, tiles of 256 centers on 64 rows; D >= 64 and a
+// multiple of 8 the wide one, tiles of 32 on 16 rows (unless `generic`, a
+// hook that holds the generic kernel against it); other widths the generic
+// one, tiles of 64 on 64 rows.  Returns a CUDA error code (0 on success).
 template <typename T>
 int launch(const T* x, const T* centers, const uint8_t* mask,
            const int* count, float* d2_out, int* idx_out,
            unsigned long long* keys, int* tickets, int n, int k, int d,
-           int n_split, cudaStream_t st) {
+           int n_split, cudaStream_t st, bool generic = false) {
   if (n <= 0) return 0;
+  if (wide::takes(d) && !generic) {
+    const dim3 grid((n + wide::ROWS - 1) / wide::ROWS, n_split);
+    const int aligned = ((reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(centers)) % 16) == 0;
+    wide::dpmeans_assign_wide_kernel<T><<<grid, wide::NT, 0, st>>>(
+        x, centers, mask, count, d2_out, idx_out, keys, tickets, n, k, d,
+        aligned);
+    return (int)cudaGetLastError();
+  }
   const dim3 grid((n + BM - 1) / BM, n_split);
   if (d == fast::D) {
     constexpr int smem = (int)sizeof(fast::Smem<T>);

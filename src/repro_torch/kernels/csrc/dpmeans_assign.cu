@@ -38,7 +38,24 @@
 //    float4 shared loads: 12 loads per 128 FMAs.  Rows are padded to 20
 //    floats so that those loads are free of bank conflicts.  A block-uniform
 //    test skips the upper half of a tile that lies past the count.
-//  - Other widths take the generic kernel: 64 x 64 tiles staged through
+//  - At D >= 64, a multiple of 8 (curation's 2048), the wide kernel.  There
+//    few rows meet few centers over long rows: (256, 512, 2048) is 131,072
+//    dot products of 2,048 dependent fmaf each, 8.0 us at the f32 FMA
+//    rate.  The generic 64 x 64 tile gives that shape 16 blocks on 132
+//    SMs and reaches 1.5 % of that rate there (0.5164 ms on an H100 80GB
+//    HBM3 at 700 W, 8.1x its plain version).  The wide kernel takes tiles
+//    of 16 rows x 32 centers on blocks of two warps (a 4 x 2 register tile
+//    a thread), and its split allows one a tile (about four blocks an SM),
+//    so that shape runs on 256 blocks; it streams x and center rows
+//    through a 3-stage cp.async ring in 256-byte chunks, feeds the
+//    register tile with vector shared loads (6 loads for 32 FMAs, x
+//    broadcast to the 8 lanes of a row group, free of bank conflicts), and
+//    forms ||x||^2 and ||c||^2 from the staged chunks beside the dot
+//    products.  With about 8 pairs a lane at that shape, shared-memory
+//    loads bound it: 0.058 ms, 14 % of the FMA rate, against 0.063 ms for
+//    the plain version (same card).  assign_tile.cuh gives the details.
+//  - Other widths (D = 8 of the examples and `serve_clusters`, odd and
+//    narrow widths) take the generic kernel: 64 x 64 tiles staged through
 //    shared memory in chunks of 32 values of D, a 4 x 4 register tile,
 //    with the same split and merge.
 //
@@ -70,31 +87,35 @@
 
 // Returns a CUDA error code (0 on success).  dtype: 0 float32, 1 bfloat16,
 // 2 float16 (x and centers share it).  With n_split > 1, keys holds at
-// least n 64-bit keys that are all ones and tickets at least ceil(n/64)
+// least n 64-bit keys that are all ones and tickets at least ceil(n/16)
 // ints that are 0; each launch leaves them so again.  D = 16 takes the
-// fast kernel, tiles of 256 centers; other widths the generic one, tiles
-// of 64 (`dpmeans_assign.block_k` says the same).
+// fast kernel, tiles of 256 centers on 64 rows; D >= 64 and a multiple of
+// 8 the wide one, tiles of 32 on 16 rows; other widths the generic one,
+// tiles of 64 on 64 rows (`dpmeans_assign.block_k` and `block_n` say the
+// same).  generic: 1 runs the generic kernel at a wide width (a hook that
+// holds the two against each other).
 extern "C" int dpmeans_assign_fwd(const void* x, const void* centers,
                                   const uint8_t* mask, const int* count,
                                   float* d2_out, int* idx_out,
                                   unsigned long long* keys, int* tickets,
                                   int dtype, int n, int k, int d, int n_split,
-                                  void* stream) {
+                                  int generic, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  const bool g = generic != 0;
   switch (dtype) {
     case 0:
       return assign_tile::launch((const float*)x, (const float*)centers, mask,
                                  count, d2_out, idx_out, keys, tickets, n, k,
-                                 d, n_split, st);
+                                 d, n_split, st, g);
     case 1:
       return assign_tile::launch((const __nv_bfloat16*)x,
                                  (const __nv_bfloat16*)centers, mask, count,
                                  d2_out, idx_out, keys, tickets, n, k, d,
-                                 n_split, st);
+                                 n_split, st, g);
     case 2:
       return assign_tile::launch((const __half*)x, (const __half*)centers,
                                  mask, count, d2_out, idx_out, keys, tickets,
-                                 n, k, d, n_split, st);
+                                 n, k, d, n_split, st, g);
     default:
       return (int)cudaErrorInvalidValue;
   }

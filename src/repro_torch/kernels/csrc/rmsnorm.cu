@@ -38,20 +38,46 @@
 // the output gradient dy, with r = rsqrt(mean(x^2) + eps):
 //   dx = r (w dy) - x r^3 sum(w dy x) / d,   dw = sum over rows of dy (x r).
 // What bounds it: it must read x, dy (rows*D each) and w, and write dx and
-// dw, with about 10 operations an element: the memory rate bounds it.  At
+// dw, with about 12 operations an element: the memory rate bounds it.  At
 // granite-3-2b's training shape (16384, 2048) in bf16 that is 201 MB, or
-// 0.060 ms.
-// What the design does about it.  One warp per row, as the forward: a
-// first sweep over the row sums x^2 and (w dy) x (warp shuffles reduce
-// both), a second sweep re-reads the row (from L1 or L2; device memory
-// sees it once) and writes dx.  dw is a sum over every row, and it must be
-// deterministic (training resumes bit for bit), so no float atomics: each
-// block owns a fixed range of rows, each warp accumulates its rows' dy (x r)
-// into its own f32 row of shared memory (a lane owns its columns), the
-// block sums its warps in order into a partial row in device memory, and
-// a second small kernel sums the partials of every block in block order.
-// The grid is a function of (rows, D) alone (`kernels/rmsnorm.py:
-// bwd_blocks`), so two calls give the same bits.
+// 0.060 ms; at zamba2-7b's (16384, 3584) 0.105 ms.  dw is a sum over every
+// row and must be deterministic (training resumes bit for bit), so no
+// float atomics: each block owns a fixed set of rows and writes one f32
+// partial row, and `rmsnorm_dw_kernel` sums the partials in block order.
+// Two kernels, chosen by the wrapper (`kernels/rmsnorm.py:
+// bwd_one_read_threads`):
+//   * one read (`rmsnorm_bwd_one_read_kernel`), for the dense widths
+//     (`ONE_READ_WIDTHS`, 2048-4096) on 16-byte aligned rows.  A block of
+//     d / 8 threads takes one row at a time; thread t owns the eight
+//     columns of its 16-byte packs t + (d / 8) p, fixed for the whole
+//     launch.  Rows come in through a ring in shared memory filled by
+//     16-byte cp.async copies: each thread copies and reads back only its
+//     own packs, so the ring needs no barrier.  A block keeps about 16 KB
+//     of later rows in flight (two rows at bf16 d 2048, one at wider rows
+//     and in f32: twice that ran slower).  The row's x and dy packs stay
+//     in registers from the sums to the dx store, so device memory sees
+//     each once; w is read once a block.  (ss, sum w dy x) is reduced by
+//     warp shuffles and one exchange of the warps' sums through shared
+//     memory, summed in warp order: the order depends on d alone, so a
+//     row's dx does not depend on the batch, the grid or the row's
+//     position.  Each thread accumulates its columns' dw over its block's
+//     rows in row order in f32 registers (no shared-memory read-modify-
+//     write, no per-warp rows of shared memory).  The grid is a constant,
+//     `BWD_ONE_READ_BLOCKS` = 264 blocks (fewer only for fewer rows);
+//     block b takes rows b, b + 264, ..., so the rows in flight lie side by
+//     side in memory.  Two blocks fit an SM at every dense width (at most
+//     512 threads of 64 registers and 64 KB of ring), so on an H100 the
+//     whole grid is resident at once and no second wave runs on an idle
+//     card.  The partials are 264 x d f32 (3.8 MB at d 3584), read from L2
+//     by `rmsnorm_dw_kernel`.
+//   * two sweeps (`rmsnorm_bwd_kernel`, the first design), every other
+//     width and unaligned rows: one warp a row, a first sweep over the row
+//     sums x^2 and (w dy) x, a second re-reads the row (from L1 or L2) and
+//     writes dx; each warp accumulates its rows' dy (x r) into its own f32
+//     row of shared memory (a lane owns its columns), and the block sums
+//     its warps in order into its partial row.  The grid is a function of
+//     (rows, D) alone (`kernels/rmsnorm.py:bwd_blocks`).
+// Either way two calls give the same bits.
 
 #include "pack.cuh"
 
@@ -295,9 +321,19 @@ rmsnorm_dw_kernel(const float* __restrict__ partial, T* __restrict__ dw,
   const int warp = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + lane;
   float s = 0.0f;
-  if (c < d)
-    for (int b = warp; b < blocks; b += RED_WARPS)
-      s += partial[(size_t)b * d + c];
+  if (c < d) {
+    // eight loads in flight, then their sums in block order
+    int b = warp;
+    for (; b + 7 * RED_WARPS < blocks; b += 8 * RED_WARPS) {
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = partial[(size_t)(b + j * RED_WARPS) * d + c];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s += v[j];
+    }
+    for (; b < blocks; b += RED_WARPS) s += partial[(size_t)b * d + c];
+  }
   part[warp][lane] = s;
   __syncthreads();
   if (warp == 0 && c < d) {
@@ -330,6 +366,189 @@ int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
       vec, per);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  rmsnorm_dw_kernel<T><<<(d + 31) / 32, 32 * RED_WARPS, 0, stream>>>(
+      partial, (T*)dw, blocks, d);
+  return (int)cudaGetLastError();
+}
+
+// One read a row: a block of nt = d / 8 threads, thread t owning columns
+// (t + nt p) V .. + V - 1 of its P packs (P = 1 pack of 8 in bf16 / f16,
+// 2 of 4 in f32).  Block b of B takes rows b, b + B, b + 2B, ... one at a
+// time, so the rows in flight across the grid lie side by side in memory.
+// Dynamic shared memory: the ring, S stages x 2 (x, dy) x P x nt packs.
+// partial[blockIdx.x * d ...]: the block's dw partial.
+constexpr int BWD_COLS = 8;        // columns a thread owns
+constexpr int BWD_MAX_THREADS = 512;
+// Bytes of x and dy a block keeps in flight ahead of the row it works on
+// (S - 1 rows, at least one): about 16 KB a block, 32 KB an SM, ran
+// fastest on an H100; twice that ran 8-12 % slower at d 3584 and 4096.
+constexpr int BWD_FLIGHT_BYTES = 16 * 1024;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// At most 64 registers a thread, so that two blocks of 512 threads share
+// an SM.
+template <typename T, int S>
+__global__ void __launch_bounds__(BWD_MAX_THREADS, 2)
+rmsnorm_bwd_one_read_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            const T* __restrict__ dy, T* __restrict__ dx,
+                            float* __restrict__ partial, long long rows,
+                            float eps) {
+  constexpr int V = pack::Width<T>::N;
+  constexpr int P = BWD_COLS / V;
+  extern __shared__ uint4 ring[];
+  __shared__ float2 red[2][BWD_MAX_THREADS / 32];  // by row parity, warp
+  const int nt = blockDim.x;
+  const int d = BWD_COLS * nt;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int warps = nt >> 5;
+  const int blocks = gridDim.x;
+  const int n = (int)((rows - 1 - blockIdx.x) / blocks + 1);  // its rows
+
+  // This thread's pack p of tensor k (0 x, 1 dy) in stage s.
+  auto slot = [&](int s, int k, int p) -> uint4* {
+    return ring + ((s * 2 + k) * P + p) * nt + t;
+  };
+  // The copies of the block's row i into stage s (none past its last), as
+  // one commit group.
+  auto issue = [&](int i, int s) {
+    if (i < n) {
+      const long long off = (blockIdx.x + (long long)i * blocks) * d;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int c = (t + nt * p) * V;
+        cp_async16(slot(s, 0, p), x + off + c);
+        cp_async16(slot(s, 1, p), dy + off + c);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) issue(s, s);
+
+  uint4 wr[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    wr[p] = *reinterpret_cast<const uint4*>(w + (t + nt * p) * V);
+  float acc[P * V];
+#pragma unroll
+  for (int j = 0; j < P * V; ++j) acc[j] = 0.0f;
+
+  int s = 0;
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<S - 2>();   // this thread's copies of row i
+    uint4 xa[P], ga[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      xa[p] = *slot(s, 0, p);
+      ga[p] = *slot(s, 1, p);
+    }
+    // stage s - 1 was read into registers in the previous iteration
+    issue(i + S - 1, s == 0 ? S - 1 : s - 1);
+
+    float ss = 0.0f, dot = 0.0f;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      float a[V], g[V], h[V];
+      pack::unpack16<T>(xa[p], a);
+      pack::unpack16<T>(ga[p], g);
+      pack::unpack16<T>(wr[p], h);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        ss = fmaf(a[j], a[j], ss);
+        dot = fmaf(g[j] * h[j], a[j], dot);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    // The warps' sums through shared memory, one buffer a row parity: a
+    // warp writes row i + 2's only after the barrier of row i + 1, which
+    // every thread reaches after reading row i's.
+    float2* rb = red[i & 1];
+    if (lane == 0) rb[warp] = make_float2(ss, dot);
+    __syncthreads();
+    float tss = 0.0f, tdot = 0.0f;
+    for (int k = 0; k < warps; ++k) {
+      const float2 v = rb[k];
+      tss += v.x;
+      tdot += v.y;
+    }
+    const float r = rsqrtf(tss / (float)d + eps);
+    const float c3 = (r * r * r) * (tdot / (float)d);
+
+    T* orow = dx + (blockIdx.x + (long long)i * blocks) * d;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      float a[V], g[V], h[V], o[V];
+      pack::unpack16<T>(xa[p], a);
+      pack::unpack16<T>(ga[p], g);
+      pack::unpack16<T>(wr[p], h);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        o[j] = (g[j] * h[j]) * r - a[j] * c3;
+        acc[p * V + j] += g[j] * (a[j] * r);
+      }
+      pack::store16(orow + (t + nt * p) * V, o);
+    }
+    s = s == S - 1 ? 0 : s + 1;
+  }
+  cp_async_wait<0>();
+
+  float* out = partial + (size_t)blockIdx.x * d;
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int j = 0; j < V; j += 4)
+      pack::store16(out + (t + nt * p) * V + j, acc + p * V + j);
+}
+
+template <typename T, int S>
+int launch_bwd_one_read_s(const T* x, const T* w, const T* dy, T* dx,
+                          float* partial, long long rows, int nt, float eps,
+                          int blocks, cudaStream_t stream) {
+  const int smem = S * 2 * (BWD_COLS / pack::Width<T>::N) * nt * 16;
+  // always: the static exchange buffer counts toward the default 48 KB too
+  const cudaError_t e = cudaFuncSetAttribute(
+      rmsnorm_bwd_one_read_kernel<T, S>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  rmsnorm_bwd_one_read_kernel<T, S><<<blocks, nt, smem, stream>>>(
+      x, w, dy, dx, partial, rows, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_one_read(const void* x, const void* w, const void* dy,
+                        void* dx, void* dw, float* partial, long long rows,
+                        int d, float eps, int blocks, cudaStream_t stream) {
+  const int nt = d / BWD_COLS;
+  if (rows <= 0 || blocks <= 0 || blocks > rows || d % (32 * BWD_COLS) != 0
+      || nt > BWD_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  // rows of x and dy in flight ahead: two where two fit BWD_FLIGHT_BYTES
+  const int e =
+      2 * d * (int)sizeof(T) * 2 <= BWD_FLIGHT_BYTES
+          ? launch_bwd_one_read_s<T, 3>((const T*)x, (const T*)w,
+                                        (const T*)dy, (T*)dx, partial, rows,
+                                        nt, eps, blocks, stream)
+          : launch_bwd_one_read_s<T, 2>((const T*)x, (const T*)w,
+                                        (const T*)dy, (T*)dx, partial, rows,
+                                        nt, eps, blocks, stream);
+  if (e != 0) return e;
   rmsnorm_dw_kernel<T><<<(d + 31) / 32, 32 * RED_WARPS, 0, stream>>>(
       partial, (T*)dw, blocks, d);
   return (int)cudaGetLastError();
@@ -381,5 +600,28 @@ extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy,
   if (dtype == 2)
     return launch_bwd<__half>(x, w, dy, dx, dw, p, rows, d, eps, vec, warps,
                               blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The one-read backward (dense widths, 16-byte aligned rows): dx (rows, d)
+// and dw (d,) as `rmsnorm_bwd` gives them, on a grid of `blocks` (at most
+// rows) blocks of d / 8 threads; d a multiple of 256 up to 4096.  partial:
+// blocks * d f32 scratch.
+extern "C" int rmsnorm_bwd_one_read(const void* x, const void* w,
+                                    const void* dy, void* dx, void* dw,
+                                    void* partial, int dtype, long long rows,
+                                    int d, float eps, int blocks,
+                                    void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  float* p = (float*)partial;
+  if (dtype == 0)
+    return launch_bwd_one_read<float>(x, w, dy, dx, dw, p, rows, d, eps,
+                                      blocks, s);
+  if (dtype == 1)
+    return launch_bwd_one_read<__nv_bfloat16>(x, w, dy, dx, dw, p, rows, d,
+                                              eps, blocks, s);
+  if (dtype == 2)
+    return launch_bwd_one_read<__half>(x, w, dy, dx, dw, p, rows, d, eps,
+                                       blocks, s);
   return (int)cudaErrorInvalidValue;
 }

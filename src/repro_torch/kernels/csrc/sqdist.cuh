@@ -2,7 +2,8 @@
 // ||x||^2 + ||c||^2 - 2 x.c, included by assign_tile.cuh (the
 // nearest-center tiles of dpmeans_assign.cu and topk_stream.cu, which take
 // only `combine` and `lex_less`: 256 centers through a cp.async ring at
-// D = 16 and 64 x 64 chunks at other widths) and by topk_stream.cu (whose
+// D = 16, 16 x 32 tiles through a cp.async ring at D >= 64 and a multiple
+// of 8, 64 x 64 chunks at other widths) and by topk_stream.cu (whose
 // generic-width top-k uses the tiling below and `tile_dots`).
 //
 // Exactness.  Every dot product, ||x||^2 and ||c||^2 is a chain of fmaf in
@@ -14,11 +15,18 @@
 // met in: the top-1 column of top-k equals the nearest-center kernel, and
 // a hierarchical (multi-probe) top-k over every cell equals the flat one.
 //
-// Tiling.  A block of NT = 256 threads owns BM = 64 query rows and walks
-// tiles of BK = 64 centers; each thread keeps a 4x4 register tile of dot
-// products, so one pair of shared-memory loads feeds 16 FMAs.  x and
-// center tiles are staged transposed through shared memory in chunks of DC
-// values of D (any D works); x stays resident when D fits one chunk.
+// Tiling (top-k's generic tile).  A block of NT = 256 threads owns BM = 64
+// query rows and walks tiles of BK = 64 centers; each thread keeps a 4x4
+// register tile of dot products, so one pair of shared-memory loads feeds
+// 16 FMAs.  x and center tiles are staged transposed through shared memory
+// in chunks of DC values of D (any D works); x stays resident when D fits
+// one chunk.  On an H100 a tile this large leaves a few-row, wide-D call
+// with few blocks (curation's 256 x 512 at D = 2048: 16 blocks for 132
+// SMs, 1.5 % of the f32 FMA rate), and its element-wise transposing loads
+// and serial ||x||^2 prologue stall it; the nearest-center kernel takes
+// such widths with its own wide tile (assign_tile.cuh, `wide`), whose
+// pairs have the same bits as this tile's, while top-k for k > 1 keeps
+// this one.
 
 #pragma once
 

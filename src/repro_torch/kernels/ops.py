@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dpmeans_assign import dpmeans_assign as _dpmeans_assign
+from repro_torch.kernels.dpmeans_assign import tile_kernel as _tile_kernel
 from repro_torch.kernels.flash_attention import (
     check_shapes as _flash_check_shapes,
     flash_attention as _flash_attention,
@@ -50,6 +51,7 @@ from repro_torch.kernels.topk_stream import (
 
 __all__ = ["assign", "pairwise_argmin", "serve_assign", "serve_topk",
            "serve_topk_multiprobe", "ASSIGN_LAUNCHES",
+           "ASSIGN_TILE_LAUNCHES",
            "PAIRWISE_ARGMIN_LAUNCHES", "TOPK_LAUNCHES", "TOPK_MP_LAUNCHES",
            "flash_attention", "rmsnorm", "swiglu", "FLASH_LAUNCHES",
            "RMSNORM_LAUNCHES", "RMSNORM_ONE_READ_LAUNCHES",
@@ -58,6 +60,8 @@ __all__ = ["assign", "pairwise_argmin", "serve_assign", "serve_topk",
            "reset_launch_counts"]
 
 ASSIGN_LAUNCHES = 0
+# ASSIGN_LAUNCHES by the kernel the width chose (`dpmeans_assign.tile_kernel`)
+ASSIGN_TILE_LAUNCHES = {"fast": 0, "wide": 0, "generic": 0}
 PAIRWISE_ARGMIN_LAUNCHES = 0
 TOPK_LAUNCHES = 0
 TOPK_MP_LAUNCHES = 0
@@ -78,6 +82,7 @@ def reset_launch_counts() -> None:
         RMSNORM_BWD_LAUNCHES, SWIGLU_BWD_LAUNCHES
     with _COUNTS_LOCK:
         ASSIGN_LAUNCHES = PAIRWISE_ARGMIN_LAUNCHES = 0
+        ASSIGN_TILE_LAUNCHES.update(dict.fromkeys(ASSIGN_TILE_LAUNCHES, 0))
         TOPK_LAUNCHES = TOPK_MP_LAUNCHES = 0
         FLASH_LAUNCHES = RMSNORM_LAUNCHES = SWIGLU_LAUNCHES = 0
         RMSNORM_ONE_READ_LAUNCHES = RMSNORM_TWO_PASS_LAUNCHES = 0
@@ -122,6 +127,7 @@ def assign(x, centers, mask=None, count=None, backend: str = "auto"):
         out = _dpmeans_assign(x, centers, mask, _count_tensor(count, k, x.device))
         with _COUNTS_LOCK:
             ASSIGN_LAUNCHES += 1
+            ASSIGN_TILE_LAUNCHES[_tile_kernel(x.shape[-1])] += 1
         return out
     if mask is None:
         mask = torch.ones((k,), dtype=torch.bool, device=x.device)

@@ -10,8 +10,12 @@ the single lexicographic minimum of each row, bit for bit, for every S;
 its ids equal the JAX package's `dpmeans_assign_emulate`.  The kernel
 merges the splits by an atomicMin over 64-bit keys bits(d2) << 32 | id;
 `pack` mirrors that packing, and a test holds its order to (d2, id)'s.
-The kernel itself is held against its plain version on the card by
-`chip_smoke.py`.
+The width chooses the kernel (`tile_kernel`): the fast tile at D = 16, the
+wide tile (16 rows x 32 centers a block) at D >= 64 with D a multiple of 8,
+the generic tile elsewhere; the tests hold that rule and the wide tile's
+split to their contracts.  The kernel itself is held against its plain
+version, and the wide tile against the generic one bit for bit, on the
+card by `chip_smoke.py`.
 """
 import inspect
 
@@ -24,7 +28,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.dpmeans_assign import dpmeans_assign_emulate  # noqa: E402
 from repro_torch.core.objective import sq_dists  # noqa: E402
 from repro_torch.kernels.dpmeans_assign import (  # noqa: E402
-    BLOCK_N, FAST_D, block_k, n_split,
+    BLOCK_N, FAST_D, WIDE_BLOCK_N, WIDE_MIN_D, block_k, block_n, n_split,
+    tile_kernel,
 )
 
 H100_SMS = 132
@@ -33,13 +38,15 @@ INT32_MAX = 2**31 - 1
 # (rows, K, D) of the main path's launches and the split each gets on an
 # H100: the paper's propose (one or two tiles: no merge), the retrieval
 # index's propose, a score request, one row alone, the hierarchical
-# routing.
+# routing, and curation's propose at D = 2048 (the wide tile: a split a
+# tile, 16 row blocks x 16 splits).
 SHAPES = {
     "paper": ((2048, 512, 16), 1),
     "retrieval": ((256, 131072, 16), 66),
     "score": ((64, 131072, 16), 256),
     "one_row": ((1, 131072, 16), 256),
     "routing": ((110000, 512, 16), 1),
+    "curation": ((256, 512, 2048), 16),
 }
 
 
@@ -53,7 +60,50 @@ def test_split_rule_takes_shapes_only():
     assert list(inspect.signature(n_split).parameters) == ["rows", "k", "d",
                                                           "sms"]
     assert block_k(FAST_D) == 256
-    assert {block_k(d) for d in (1, 15, 17, 33, 100, 768)} == {64}
+    assert {block_k(d) for d in (1, 8, 15, 17, 33, 40, 100, 2052)} == {64}
+    assert {block_k(d) for d in (64, 768, 2048, 4096)} == {32}
+
+
+@pytest.mark.parametrize("d,kernel", [
+    (1, "generic"), (8, "generic"), (15, "generic"), (16, "fast"),
+    (17, "generic"), (33, "generic"), (40, "generic"), (56, "generic"),
+    (60, "generic"), (64, "wide"), (100, "generic"), (768, "wide"),
+    (1000, "wide"), (2048, "wide"), (2052, "generic"), (4096, "wide")])
+def test_width_chooses_the_kernel(d, kernel):
+    """D = 16 takes the fast tile; D >= 64 and a multiple of 8 (rows of
+    whole 16-byte pieces in every element type) the wide tile; the D = 8
+    of the examples and serve_clusters, the D = 40 of the f16 checks and
+    odd widths the generic tile.  Each kernel's block rows and tile."""
+    assert tile_kernel(d) == kernel
+    assert (kernel == "wide") == (d >= WIDE_MIN_D and d % 8 == 0)
+    assert block_n(d) == (WIDE_BLOCK_N if kernel == "wide" else BLOCK_N)
+    assert block_k(d) == {"fast": 256, "wide": 32, "generic": 64}[kernel]
+
+
+def test_wide_split_fills_the_card_at_curation():
+    """Curation's propose (256 rows, 512 slots, D = 2048) runs at least a
+    block an SM of the H100, each split owning one tile of 32 centers."""
+    rows, k, d = SHAPES["curation"][0]
+    s = n_split(rows, k, d, H100_SMS)
+    row_blocks = -(-rows // block_n(d))
+    assert row_blocks * s >= H100_SMS
+    assert s == -(-k // block_k(d))
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+def test_wide_split_bounds_and_grid_fill(sms):
+    """At most a split a tile; about four blocks an SM where the tiles
+    allow it, with one split fewer short of it."""
+    for rows in (1, 15, 16, 17, 63, 256, 1000, 2048, 9000):
+        for k in (1, 31, 32, 33, 256, 512, 1000, 4096):
+            for d in (64, 768, 2048, 4096):
+                s = n_split(rows, k, d, sms)
+                tiles = -(-k // 32)
+                row_blocks = -(-rows // WIDE_BLOCK_N)
+                assert 1 <= s <= tiles
+                if tiles >= -(-4 * sms // row_blocks):
+                    assert row_blocks * s >= 4 * sms
+                    assert s == 1 or row_blocks * (s - 1) < 4 * sms
 
 
 @pytest.mark.parametrize("sms", [1, 8, 132])
@@ -183,7 +233,7 @@ CASES = ("plain", "holes", "ragged", "count0", "count_past_k", "count1",
          "duplicates")
 
 
-@pytest.mark.parametrize("bk", [256, 64])
+@pytest.mark.parametrize("bk", [256, 64, 32])
 @pytest.mark.parametrize("name", CASES)
 def test_schedule_is_bitwise_independent_of_the_split(name, bk):
     x, c, mask, count, d2 = _case(name)
