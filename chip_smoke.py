@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,moe,serve_clusters,curation,examples,hybrid,xlstm]
+  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,moe,serve_clusters,curation,examples,hybrid,xlstm,frontends]
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
@@ -29,14 +29,20 @@ remaining entry points: the train-while-serve pipeline (two tenants'
 trainer threads, sixteen client threads behind a coalescing router, a QoS
 A/B of priority lanes against FIFO, every response audited), OCC data
 curation of 2,048 sequences embedded by granite-3-2b at full width and
-depth, and each of the port's examples.  Last, the recurrent families:
+depth, and each of the port's examples.  Then the recurrent families:
 the hybrid zamba2-7b (Mamba2 blocks and a shared attention block, flash
 at head dim 112) and xlstm-1.3b (mLSTM and sLSTM blocks), each at full
 width in f32 against the plain versions, served at full width and depth
 (a 4 x 4096 prefill and the slot engine's decode over recurrent state)
-and trained at full width and cut depth.  `--phases serve` or `examples`
-alone trains the retrieval index first; `--phases cluster`, `ha`,
-`serve_clusters` or `curation` alone builds the kernels first.
+and trained at full width and cut depth.  Last, the frontend families:
+internvl2-2b (a patch-embedding prefix before the tokens) and
+seamless-m4t-medium (an encoder over audio frames, a decoder with
+cross-attention), each at full width in f32 against the plain versions,
+served at full width and depth (a 4 x 4096 prefill, decode steps from
+its caches and the slot engine) and trained at full width.  `--phases
+serve` or `examples` alone trains the retrieval index first; `--phases
+cluster`, `ha`, `serve_clusters`, `curation`, `hybrid`, `xlstm` or
+`frontends` alone builds the kernels first.
 
 Every phase prints one JSON line.  The line before the last lists each
 kernel with its launches on the main path, its error against the plain
@@ -61,7 +67,7 @@ import time
 ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper", "ofl",
               "bp_means", "fig3", "retrieval", "serve", "invariants",
               "cluster", "ha", "lm_serve", "train", "moe", "serve_clusters",
-              "curation", "examples", "hybrid", "xlstm")
+              "curation", "examples", "hybrid", "xlstm", "frontends")
 KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream",
            "flash_attention", "rmsnorm", "swiglu", "rmsnorm_bwd", "swiglu_bwd")
 SOURCES = ("dpmeans_assign", "topk_stream", "flash_attention", "rmsnorm",
@@ -72,13 +78,17 @@ SOURCES = ("dpmeans_assign", "topk_stream", "flash_attention", "rmsnorm",
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
-# The paper's §4 clustering data (benchmarks/fig4_scaling.py).
-DP_N = 2**20
+# The paper's §4 clustering data (benchmarks/fig4_scaling.py), cut from
+# 2^20 points when the frontends phase came in (at 2^20 pass 1's serial
+# accept scan took 85-115 s and the phase about 137 s on an H100 80GB HBM3
+# at 700 W).
+DP_N = 2**19
 # OFL over it opens tens of thousands of facilities: the pool's capacity.
 OFL_K_MAX = 131_072
-# OFL streams the first OFL_N of those points (the whole 2^20 until the
-# hybrid and xlstm phases came in: 105 s of the script).
-OFL_N = 2**19
+# OFL streams the first OFL_N of those points (2^20 until the hybrid and
+# xlstm phases came in: 105 s of the script; 2^19, 56 s of its stream on an
+# H100 80GB HBM3 at 700 W, until the frontends phase came in).
+OFL_N = 2**18
 # The paper's §4 feature data for BP-means.
 BP_N = 2**18
 # The multi-process cluster over the paper's §4 data, cut from 2^20 points
@@ -246,7 +256,9 @@ REC_F32_DECODE_TOL = 2e-3
 # of its largest magnitude (on an H100 80GB HBM3 at 700 W).
 REC_F32_GRAD_TOL = {"hybrid": 1e-3, "xlstm": 1e-3}
 # (b) Full depth, bf16, flash attention: a 4 x TRAIN_SEQ prefill, then 4
-# requests of prompt 64 and REC_SERVE_MAX_NEW new tokens on 4 slots.
+# requests of prompt REC_SERVE_PROMPT and REC_SERVE_MAX_NEW new tokens on
+# 4 slots (both cut from 64 when the frontends phase came in: the engine
+# dispatches each decode call from the host, 49-87 ms a call).
 # Last-token logits of two routes (kernels against plain versions;
 # decode_step after a prefill against one longer prefill) agree within
 # the larger of REC_BF16_LOGIT_TOL of max |logit| and the reference's own
@@ -283,7 +295,8 @@ REC_COMPARE = (2, 1024)
 # xlstm's profiled prefill: 4 x this many tokens (its 4 x 4096 prefill
 # takes 8.8 s under the profiler, a quarter of them the same work).
 REC_PROFILE_XLSTM = 1024
-REC_SERVE_MAX_NEW = 64
+REC_SERVE_PROMPT = 32
+REC_SERVE_MAX_NEW = 32
 # (c) Training at full width: zamba2 at REC_TRAIN_LAYERS layers (12 bytes
 # a parameter: 81 GB at 81 layers; 12 layers are two segments of six and
 # two uses of the shared block, 16.4 GB), xlstm at 8 (one segment of each
@@ -308,6 +321,40 @@ REC_TRAIN_PLAIN_STEPS = 2
 # at step 2 of 4 x 1024, the loss within 2.3e-4 throughout, on an H100
 # 80GB HBM3 at 700 W; at random init its grad norm is 70.
 REC_TRAIN_GNORM_TOL = {"hybrid": TRAIN_GNORM_TOL, "xlstm": 0.1}
+# The frontend families (the frontends phase), widths never cut:
+# internvl2-2b (vlm: 24 layers, d 2048, 16/8 heads of 128, d_ff 8192,
+# vocab 92553; a 256-patch prefix of 1024-wide stub embeddings) and
+# seamless-m4t-medium (audio: 12 encoder layers over 1024 frames of 160,
+# 12 decoder layers with cross-attention; d 1024, 16/16 heads of 64, d_ff
+# 4096, vocab 256206).  (a) Full width, f32, 2 layers (seamless: 2 encoder
+# and 2 decoder layers): a 1 x FE_F32_SEQ-position prefill carrying a
+# frontend batch (internvl2: 256 patches and 256 tokens), the kernels
+# against the plain versions within LOGIT_TOL; decode_step after a
+# prefill against the longer prefill within REC_F32_DECODE_TOL; the loss
+# within TRAIN_F32_LOSS_RTOL and every gradient (the frontend's, the
+# encoder's and the cross-attention's among them) within
+# TRAIN_F32_GRAD_TOL of its largest magnitude.
+FE_F32_SEQ = 512
+# (b) Full width and depth, bf16, flash attention: a 4 x TRAIN_SEQ-position
+# prefill (internvl2: 256 patches + 3840 tokens; seamless: 4096 tokens over
+# 1024 frames); FE_TICKS decode steps from its caches (the cross keys and
+# values static); the kernels against the plain versions and the plain
+# versions in f32 on an FE_COMPARE (B, positions) batch, held as
+# `_rec_agree` holds them (BF16_LOGIT_TOL, or REC_FLOOR_MUL times the bf16
+# run's own distance from f32); a ServeEngine run of 4 requests of prompt
+# FE_SERVE_PROMPT and FE_SERVE_MAX_NEW new tokens on 4 slots.
+FE_TICKS = 32
+FE_COMPARE = (2, 1024)
+FE_SERVE_PROMPT = 32
+FE_SERVE_MAX_NEW = 32
+# (c) Training at full width: internvl2 at FE_TRAIN_LAYERS of its 24
+# layers, seamless at its full 12 + 12; bf16, remat "full", chunked
+# attention, 4 x TRAIN_SEQ positions, FE_TRAIN_STEPS AdamW steps, the first
+# FE_TRAIN_PLAIN_STEPS against the plain versions within TRAIN_LOSS_TOL and
+# TRAIN_GNORM_TOL.
+FE_TRAIN_LAYERS = {"internvl2-2b": 8, "seamless-m4t-medium": 12}
+FE_TRAIN_STEPS = 4
+FE_TRAIN_PLAIN_STEPS = 2
 
 
 def emit(obj) -> None:
@@ -2409,7 +2456,8 @@ class Smoke:
                                    flash_attention(q, k, v, causal=causal),
                                    ref.flash_attention_ref(q, k, v, causal))
                 for shape in ((16384, 2560), (4, 2560), (2, 3, 2560),
-                              (16384, 3584), (7, 33)):
+                              (16384, 3584), (16384, 1024), (4, 1024),
+                              (7, 33)):
                     x, w = randn(shape, dt), randn(shape[-1:], dt)
                     self._lm_agree("rmsnorm", f"{tag} {shape}",
                                    rmsnorm(x, w, 1e-6),
@@ -2468,16 +2516,16 @@ class Smoke:
 
     def _rmsnorm_f16(self):
         """rmsnorm on float16 against its plain version: within 1e-2 (the
-        reference's f16 bar) at a dense width (16384, 2560, the one-read
-        kernel), at decode (4, 2560) and at a width of the two-pass kernel
-        (7, 33).  Weights near 1, as a trained norm's are, keep the outputs
+        reference's f16 bar) at dense widths (16384, 2560 and 16384, 1024,
+        the one-read kernel), at decode (4, 2560) and at a width of the
+        two-pass kernel (7, 33).  Weights near 1, as a trained norm's are, keep the outputs
         below 8, where one f16 ulp is under the bar."""
         torch = self.torch
         from repro_torch.kernels import ref
         from repro_torch.kernels.rmsnorm import rmsnorm_launch
         g = torch.Generator(device=self.dev).manual_seed(self.seed + 310)
         with torch.inference_mode():
-            for shape in ((16384, 2560), (4, 2560), (7, 33)):
+            for shape in ((16384, 2560), (4, 2560), (16384, 1024), (7, 33)):
                 x = torch.randn(shape, generator=g, device=self.dev).half()
                 w = (0.5 + torch.rand(shape[-1:], generator=g,
                                       device=self.dev)).half()
@@ -2499,7 +2547,7 @@ class Smoke:
     def _flash_sweep(self, randn):
         """The bf16 tensor-core flash kernel against its plain version, each
         case within one bf16 ulp at the output's largest magnitude: every
-        Dh of HEAD_DIMS, causal and full, GQA groups 1 and 4, S = 16, 48,
+        Dh of HEAD_DIMS, causal and full, GQA groups 1, 2 and 4, S = 16, 48,
         128 and 384 (below, at and over one 128-row tile), contiguous
         inputs and transposed (B, S, H, Dh) views; then S = 4096 at Dh 128.
         One line per Dh with its worst case."""
@@ -2533,25 +2581,25 @@ class Smoke:
             for dh in HEAD_DIMS:
                 worst = (0.0, "")
                 for causal in (True, False):
-                    for group in (1, 4):
+                    for group in (1, 2, 4):
                         for s in (16, 48, 128, 384):
                             for layout in ("contiguous", "transposed"):
                                 worst = max(worst, case(dh, causal, group, s,
                                                         layout))
                                 n += 1
                 emit({"phase": "lm_kernels", "kernel": "flash_attention",
-                      "sweep_dh": dh, "cases": 32,
+                      "sweep_dh": dh, "cases": 48,
                       "worst_err_over_tol": worst[0], "worst_case": worst[1]})
             worst = (0.0, "")
             tights = []
             for causal in (True, False):
-                for group in (1, 4):
+                for group in (1, 2, 4):
                     for layout in ("contiguous", "transposed"):
                         worst = max(worst, case(128, causal, group, 4096,
                                                 layout, b=1, h=8, tight=True))
                         n += 1
             emit({"phase": "lm_kernels", "kernel": "flash_attention",
-                  "sweep_dh": 128, "s": 4096, "cases": 8,
+                  "sweep_dh": 128, "s": 4096, "cases": 12,
                   "worst_err_over_tol": worst[0], "worst_case": worst[1],
                   "sweep_cases": n,
                   "worst_row_err_over_row_ulp": max(
@@ -2809,7 +2857,8 @@ class Smoke:
         """The backward kernels of the training path against their plain
         versions (`ref.rmsnorm_bwd_ref`, `ref.swiglu_bwd_ref`): rmsnorm's
         in f32, bf16 and f16 at every width of its one-read kernel
-        (granite-3-2b's, qwen3-4b's and zamba2-7b's training widths among
+        (granite-3-2b's, qwen3-4b's, zamba2-7b's and seamless's training
+        widths among
         them, and fewer rows than its grid's blocks), at decode rows, at a
         3-d batch, at widths off the pack (33, 1000) and on a misaligned
         view (the two-sweep kernel), and at the dense widths the two-sweep
@@ -2836,8 +2885,9 @@ class Smoke:
                     * mul).to(dt)
         for dt in (f32, bf16, f16):
             for shape in ((16384, 2048), (16384, 2560), (16384, 3584),
-                          (263, 3072), (1000, 4096), (100, 3584),
-                          (4, 2560), (2, 3, 2048), (7, 33), (333, 1000)):
+                          (16384, 1024), (263, 1024), (263, 3072),
+                          (1000, 4096), (100, 3584), (4, 2560), (2, 3, 2048),
+                          (7, 33), (333, 1000)):
                 x, dy = randn(shape, dt), randn(shape, dt)
                 w = randn(shape[-1:], dt)
                 dx, dw = rmsnorm_bwd(x, w, dy, 1e-6)
@@ -4579,7 +4629,10 @@ class Smoke:
         """The language-model kernels' launches of one prefill (flash
         attention) and of one decode_step, from the segments: a norm a
         recurrent block, two (and a swiglu) an attention block with an MLP,
-        and the final norm."""
+        three a decoder block (its cross-attention's norm), and the final
+        norm.  A prefill also norms the frontend's projection (fe_norm) and
+        runs the encoder: two norms and a swiglu a layer (its attention
+        plain torch), and its final norm."""
         from repro_torch.models.transformer import segments_for
         norms = attn = 0
         for kind, count, _ in segments_for(cfg):
@@ -4587,10 +4640,14 @@ class Smoke:
                 norms += count
             else:
                 attn += count
-                norms += count * (2 if cfg.d_ff else 1)
+                norms += count * ((2 if cfg.d_ff else 1)
+                                  + (kind == "dec_attn_mlp"))
         ffn = attn if cfg.d_ff else 0
-        return ({"flash_attention": attn, "rmsnorm": norms + 1,
-                 "swiglu": ffn},
+        enc = cfg.enc_layers
+        return ({"flash_attention": attn,
+                 "rmsnorm": norms + 1 + bool(cfg.frontend)
+                 + (2 * enc + 1 if enc else 0),
+                 "swiglu": ffn + enc},
                 {"flash_attention": 0, "rmsnorm": norms + 1, "swiglu": ffn})
 
     def _recurrent(self, phase, base, n_params, seed):
@@ -4686,8 +4743,9 @@ class Smoke:
         """Full width and depth, bf16, flash attention, random weights from
         the seed: a 4 x TRAIN_SEQ prefill (exact launches, caches, seconds,
         tokens/s, a profiled repeat); its last-token logits against the
-        plain versions'; a ServeEngine run of 4 requests (prompt 64,
-        REC_SERVE_MAX_NEW new tokens, 4 slots) with exact launches, step
+        plain versions'; a ServeEngine run of 4 requests (prompt
+        REC_SERVE_PROMPT, REC_SERVE_MAX_NEW new tokens, 4 slots) with
+        exact launches, step
         p50 / p99, the idle share of a warm step and the peak memory;
         decode_step after prefill(64) against prefill(65)."""
         torch = self.torch
@@ -4783,7 +4841,8 @@ class Smoke:
         torch.cuda.empty_cache()
         # the main path, serving: counts from 0 just before, read just after
         eng = ServeEngine(model, n_slots=4, cache_len=256)
-        reqs = [Request(uid=i, prompt=rng.integers(0, vocab, 64),
+        reqs = [Request(uid=i, prompt=rng.integers(0, vocab,
+                                                   REC_SERVE_PROMPT),
                         max_new=REC_SERVE_MAX_NEW) for i in range(4)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4807,7 +4866,8 @@ class Smoke:
             launches[key] += served[key]
         steps = eng.step_seconds
         res["serve"] = {
-            "requests": 4, "prompt": 64, "max_new": REC_SERVE_MAX_NEW,
+            "requests": 4, "prompt": REC_SERVE_PROMPT,
+            "max_new": REC_SERVE_MAX_NEW,
             "slots": 4, "cache_len": 256, "seconds": run_s,
             "decode_calls": calls, "ticks": len(steps),
             "step_p50_ms": float(np.percentile(steps, 50)) * 1e3,
@@ -5023,6 +5083,606 @@ class Smoke:
             "kernels_vs_plain": agree,
             "tol": {"loss": TRAIN_LOSS_TOL,
                     "grad_norm": REC_TRAIN_GNORM_TOL[phase]}}
+
+    # --------------------------------------------------------- frontends
+    def frontends(self):
+        """The frontend families on the card (`models/frontend.py`, the
+        encoder-decoder's blocks and cross-attention): internvl2-2b (a
+        256-patch prefix; flash at group 2) and seamless-m4t-medium (a
+        12-layer encoder over 1024 frames, a 12-layer decoder with
+        cross-attention; rmsnorm at d 1024), each at full width in f32
+        against the plain versions (2 layers: prefill logits, decode_step
+        after a prefill, the loss and every gradient), at full width and
+        depth in bf16 (a 4 x 4096 prefill with exact launches, FE_TICKS
+        decode steps from its caches, its logits against the plain
+        versions', a ServeEngine run, the parameter count) and trained at
+        full width (internvl2 at FE_TRAIN_LAYERS layers).  Then the
+        kernels timed at the shapes these models give them.  The launches
+        of the served and trained runs count as the path's."""
+        from repro_torch.configs import get_arch
+        self._ensure_built()
+        vlm, ed = get_arch("internvl2-2b"), get_arch("seamless-m4t-medium")
+        check(vlm.family == "vlm" and vlm.n_layers == 24
+              and vlm.d_model == 2048 and vlm.n_heads == 16
+              and vlm.n_kv_heads == 8 and vlm.hd == 128 and vlm.d_ff == 8192
+              and vlm.vocab == 92553 and vlm.frontend_len == 256
+              and vlm.frontend_dim == 1024 and not vlm.is_encdec
+              and vlm.dtype == "bfloat16" and vlm.remat == "full"
+              and vlm.attn_chunk == 512, "frontends: internvl2-2b's "
+              "configuration")
+        check(ed.family == "audio" and ed.n_layers == 12
+              and ed.enc_layers == 12 and ed.d_model == 1024
+              and ed.n_heads == ed.n_kv_heads == 16 and ed.hd == 64
+              and ed.d_ff == 4096 and ed.vocab == 256206
+              and ed.frontend_len == 1024 and ed.frontend_dim == 160
+              and ed.dtype == "bfloat16" and ed.remat == "full",
+              "frontends: seamless-m4t-medium's configuration")
+        check(self._per_call(vlm) == (
+            {"flash_attention": 24, "rmsnorm": 50, "swiglu": 24},
+            {"flash_attention": 0, "rmsnorm": 49, "swiglu": 24}),
+            "frontends: internvl2-2b's 24 / 50 / 24 launches a prefill")
+        check(self._per_call(ed) == (
+            {"flash_attention": 12, "rmsnorm": 63, "swiglu": 24},
+            {"flash_attention": 0, "rmsnorm": 37, "swiglu": 12}),
+            "frontends: seamless's 12 / 63 / 24 launches a prefill")
+        launches = dict.fromkeys(("flash_attention", "rmsnorm", "swiglu",
+                                  "rmsnorm_bwd", "swiglu_bwd"), 0)
+        res = {}
+        for i, (base, n_params) in enumerate(((vlm, 1_895_440_384),
+                                              (ed, 978_971_648))):
+            seed = self.seed + 900 + 50 * i
+            r = res[base.name] = {}
+            for part, run in (
+                    ("f32", lambda: self._fe_f32(base, seed + 1)),
+                    ("serve", lambda: self._fe_serve(base, n_params,
+                                                     launches, seed + 2)),
+                    ("train", lambda: self._fe_train(base, launches,
+                                                     seed + 3))):
+                t0 = time.perf_counter()
+                with self._no_plain_backward("frontends"):
+                    r[part] = run()
+                r[part]["seconds"] = time.perf_counter() - t0
+                self.torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        self._fe_kernel_times()
+        res["kernel_times_seconds"] = time.perf_counter() - t0
+        res["launches"] = launches
+        self.path_launches["frontends"] = launches
+        emit({"phase": "frontends", "card": self.card, **res})
+
+    def _fe_batch(self, cfg, b: int, positions: int, rng) -> dict:
+        """tokens, next-token labels and stub frontend embeddings (b, F,
+        frontend_dim) f32 from `rng`, for `positions` positions of the
+        decoder: F patches and positions - F tokens for the vision prefix,
+        positions tokens for the encoder-decoder."""
+        import numpy as np
+        n_prefix = 0 if cfg.is_encdec else cfg.frontend_len
+        toks = rng.integers(0, cfg.vocab, (b, positions - n_prefix + 1))
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                "frontend": rng.normal(size=(
+                    b, cfg.frontend_len, cfg.frontend_dim)).astype(
+                        np.float32)}
+
+    def _fe_decode_vs_prefill(self, model, batch):
+        """(logits of decode_step after the prefill of batch's tokens but
+        the last, logits of the prefill of all of them): the caches get room
+        for one more position, decode runs at n_prefix + S.  With the
+        vision prefix the longer prefill runs the chunked attention (F + S
+        + 1 positions are no multiple of 128, which flash needs)."""
+        torch = self.torch
+        import numpy as np
+        cfg = model.cfg
+        n_prefix = 0 if cfg.is_encdec else cfg.frontend_len
+        s = batch["tokens"].shape[1] - 1
+        _, c = model.prefill(dict(batch, tokens=batch["tokens"][:, :s]))
+        if n_prefix:
+            model.cfg = cfg.replace(attn_impl="chunked")
+        longer, _ = model.prefill(batch)
+        model.cfg = cfg
+        pad = {seg: [{k: torch.cat([t, torch.zeros_like(t[:, :1])], 1)
+                      if k in ("k", "v") else t for k, t in layer.items()}
+                     for layer in layers] for seg, layers in c.items()}
+        ld, _ = model.decode_step(pad, batch["tokens"][:, s:],
+                                  np.full((len(batch["tokens"]),),
+                                          n_prefix + s, np.int64))
+        return ld, longer
+
+    def _fe_f32(self, base, seed) -> dict:
+        """Full width, 2 layers (and 2 encoder layers), f32: the kernels
+        (exact launches; flash for the causal self-attention) against the
+        plain versions on a 1 x FE_F32_SEQ-position prefill with a frontend
+        batch; decode_step after a prefill against the longer prefill; the
+        loss and every gradient against the plain versions'."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model
+        from repro_torch.training import loss_and_grads
+        cfg = base.replace(n_layers=2, enc_layers=min(base.enc_layers, 2),
+                           dtype="float32", attn_impl="flash")
+        rng = np.random.default_rng(seed)
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(seed))
+        batch = self._fe_batch(cfg, 1, FE_F32_SEQ, rng)
+        ops.reset_launch_counts()
+        lk, _ = model.prefill(batch)
+        counts = self._moe_counts()
+        want = dict(self._per_call(cfg)[0], rmsnorm_bwd=0, swiglu_bwd=0)
+        model.backend, model.cfg = "plain", cfg.replace(attn_impl="chunked")
+        lp, _ = model.prefill(batch)
+        check(counts == want and self._moe_counts() == counts,
+              f"{base.name} f32: prefill launches {counts}, expected {want}, "
+              "none for the plain one")
+        err = float((lk - lp).abs().max())
+        tol = LOGIT_TOL * max(1.0, float(lp.abs().max()))
+        check(bool(torch.isfinite(lk).all()) and lk.shape == (1, cfg.vocab)
+              and err <= tol,
+              f"{base.name} f32: prefill logits kernels vs plain {err} > "
+              f"{tol}")
+        model.backend, model.cfg = "auto", cfg
+        # 64 tokens, or the vision prefix's 256 patches and 128 tokens
+        short = self._fe_batch(cfg, 1, (64 if cfg.is_encdec else 384) + 1,
+                               rng)
+        ld, longer = self._fe_decode_vs_prefill(model, short)
+        derr = float((ld - longer).abs().max())
+        dtol = REC_F32_DECODE_TOL * max(1.0, float(longer.abs().max()))
+        check(derr <= dtol, f"{base.name} f32: decode_step after a prefill "
+              f"vs the longer prefill {derr} > {dtol}")
+        # the loss and every gradient (chunked attention, as training runs)
+        model.cfg = cfg.replace(attn_impl="chunked")
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        gl, gk = loss_and_grads(model, params, batch)
+        pl, gp = loss_and_grads(
+            build_model(model.cfg, device="meta", backend="plain"), params,
+            batch)
+        loss_rel = abs(float(gl) - float(pl)) / abs(float(pl))
+        worst, worst_name = 0.0, ""
+        for k in gp:
+            scale = float(gp[k].abs().max())
+            r = float((gk[k] - gp[k]).abs().max()) / max(scale, 1e-30)
+            check(bool(torch.isfinite(gk[k]).all()),
+                  f"{base.name} f32: gradient {k} not finite")
+            if r > worst:
+                worst, worst_name = r, k
+        need = {"frontend.fe_w1", "frontend.fe_w2", "frontend.fe_norm"}
+        if cfg.is_encdec:
+            need |= {"encoder.norm", "encoder.segments.0.wq",
+                     "segments.seg_00.0.cross_wq", "segments.seg_00.0.norm_x"}
+        check(need <= set(gp) and math.isfinite(float(gl))
+              and loss_rel <= TRAIN_F32_LOSS_RTOL
+              and worst <= TRAIN_F32_GRAD_TOL,
+              f"{base.name} f32: loss rel {loss_rel}, worst gradient "
+              f"{worst_name} {worst} of its max abs")
+        del model, params, gk, gp
+        return {"layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+                "positions": FE_F32_SEQ, "launches": counts,
+                "prefill_logit_max_abs_err": err, "tol": tol,
+                "decode_vs_prefill_max_abs_err": derr, "decode_tol": dtol,
+                "loss": float(gl), "loss_rel": loss_rel,
+                "worst_grad_err_over_max": worst, "worst_grad": worst_name,
+                "grad_tol": {"loss_rel": TRAIN_F32_LOSS_RTOL,
+                             "grad": TRAIN_F32_GRAD_TOL}}
+
+    def _fe_serve(self, base, n_params, launches, seed) -> dict:
+        """Full width and depth, bf16, flash attention, random weights from
+        the seed: the parameter count; a 4 x TRAIN_SEQ-position prefill
+        (exact launches, caches, seconds, tokens/s); FE_TICKS decode steps
+        from its caches (exact launches, p50 / p99, a warm step's idle
+        share); its logits against the plain versions' on an FE_COMPARE
+        batch; a ServeEngine run; decode_step after a prefill against the
+        longer prefill."""
+        torch = self.torch
+        import types
+        import numpy as np
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.rmsnorm import one_read_packs
+        from repro_torch.models import build_model
+        from repro_torch.serving.engine import Request, ServeEngine
+        cfg = base.replace(attn_impl="flash")
+        vocab, name = cfg.vocab, base.name
+        per_prefill, per_step = self._per_call(cfg)
+        zero_bwd = {"rmsnorm_bwd": 0, "swiglu_bwd": 0}
+        rng = np.random.default_rng(seed)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        res = {"init_s": time.perf_counter() - t0,
+               "params": model.param_count()}
+        check(res["params"] == n_params and model.dtype == torch.bfloat16
+              and all(p.dtype == torch.bfloat16 for p in model.parameters()),
+              f"{name}: {res['params']} parameters, all bf16")
+        b, s = 4, TRAIN_SEQ
+        n_prefix = 0 if cfg.is_encdec else cfg.frontend_len
+        batch = self._fe_batch(cfg, b, s, rng)
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, prefill: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        pre = self._moe_counts()
+        one_read = ops.RMSNORM_ONE_READ_LAUNCHES
+        want_one_read = pre["rmsnorm"] if one_read_packs(
+            cfg.d_model, 2, True) else 0
+        check(pre == dict(per_prefill, **zero_bwd)
+              and one_read == want_one_read,
+              f"{name}: prefill launches {pre} ({one_read} rmsnorm on the "
+              f"one-read kernel), expected {per_prefill}")
+        kv = (b, s, cfg.n_kv_heads, cfg.hd)
+        shapes = {k: tuple(t.shape) for k, t in caches["seg_00"][0].items()}
+        want_shapes = {"k": kv, "v": kv}
+        if cfg.is_encdec:
+            want_shapes.update(ck=(b, cfg.frontend_len) + kv[2:],
+                               cv=(b, cfg.frontend_len) + kv[2:])
+        check(logits.shape == (b, vocab) and bool(torch.isfinite(logits).all())
+              and list(caches) == ["seg_00"]
+              and len(caches["seg_00"]) == cfg.n_layers
+              and shapes == want_shapes,
+              f"{name}: prefill logits finite, caches {shapes}")
+        for key in launches:
+            launches[key] += pre[key]
+        del caches
+        t0 = time.perf_counter()
+        again, caches = model.prefill(batch)
+        torch.cuda.synchronize()
+        repeat_s = time.perf_counter() - t0
+        res["prefill"] = {
+            "batch": b, "positions": s, "prefix": n_prefix,
+            "tokens": s - n_prefix, "frames": cfg.frontend_len,
+            "first_call_s": first_s, "repeat_s": repeat_s,
+            "positions_per_s": b * s / repeat_s, "launches": pre,
+            "rmsnorm_one_read": one_read,
+            "cache_shapes": {k: list(v) for k, v in shapes.items()},
+            "repeat_bitwise": bool(torch.equal(again, logits)),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        # FE_TICKS decode steps from the prefill's caches (the cross keys
+        # and values static): counts from 0 just before, read just after
+        caches = {seg: [{k: torch.cat([t, torch.zeros_like(t[:, :FE_TICKS])],
+                                      1) if k in ("k", "v") else t
+                         for k, t in layer.items()} for layer in layers]
+                  for seg, layers in caches.items()}
+        tok = again.argmax(-1).reshape(b, 1).cpu().numpy()
+        del again, logits
+        ops.reset_launch_counts()
+        ticks = []
+        for i in range(FE_TICKS):
+            t0 = time.perf_counter()
+            lt, caches = model.decode_step(
+                caches, tok, np.full((b,), s + i, np.int64))
+            tok = lt.argmax(-1).reshape(b, 1).cpu().numpy()
+            ticks.append(time.perf_counter() - t0)
+        stepped = self._moe_counts()
+        check(stepped == dict({k: v * FE_TICKS for k, v in per_step.items()},
+                              **zero_bwd)
+              and bool(torch.isfinite(lt).all()),
+              f"{name}: {FE_TICKS} decode steps launched {stepped} "
+              f"({per_step} a step expected)")
+        for key in launches:
+            launches[key] += stepped[key]
+        res["decode_from_prefill"] = {
+            "steps": FE_TICKS, "batch": b, "first_position": s,
+            "step_p50_ms": float(np.percentile(ticks, 50)) * 1e3,
+            "step_p99_ms": float(np.percentile(ticks, 99)) * 1e3,
+            "launches": stepped,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        res["decode_idle"] = self._decode_idle(
+            model, types.SimpleNamespace(n_slots=b, caches=caches), ticks)
+        del caches, lt
+        torch.cuda.empty_cache()
+        # the kernels against the plain versions on a shorter batch
+        cbatch = self._fe_batch(cfg, *FE_COMPARE, rng)
+        lk, _ = model.prefill(cbatch)
+        model.backend, model.cfg = "plain", cfg.replace(attn_impl="chunked")
+        t0 = time.perf_counter()
+        lp, _ = model.prefill(cbatch)
+        torch.cuda.synchronize()
+        res["plain_prefill_s"] = time.perf_counter() - t0
+        model.backend, model.cfg = "auto", cfg
+        torch.cuda.empty_cache()
+        # the main path, serving: counts from 0 just before, read just after
+        eng = ServeEngine(model, n_slots=4, cache_len=128)
+        reqs = [Request(uid=i, prompt=rng.integers(0, vocab, FE_SERVE_PROMPT),
+                        max_new=FE_SERVE_MAX_NEW) for i in range(4)]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        served = self._moe_counts()
+        calls = eng.n_decode_calls
+        check(served == dict({k: v * calls for k, v in per_step.items()},
+                             **zero_bwd),
+              f"{name}: engine launches {served} for {calls} decode steps")
+        check(len(done) == 4
+              and all(len(r.out) == FE_SERVE_MAX_NEW for r in done)
+              and all(0 <= t < vocab for r in done for t in r.out),
+              f"{name}: 4 requests of {FE_SERVE_MAX_NEW} tokens in the "
+              "vocabulary")
+        for key in launches:
+            launches[key] += served[key]
+        steps = eng.step_seconds
+        res["serve"] = {
+            "requests": 4, "prompt": FE_SERVE_PROMPT,
+            "max_new": FE_SERVE_MAX_NEW, "slots": 4, "cache_len": 128,
+            "seconds": run_s, "decode_calls": calls, "ticks": len(steps),
+            "step_p50_ms": float(np.percentile(steps, 50)) * 1e3,
+            "step_p99_ms": float(np.percentile(steps, 99)) * 1e3,
+            "launches": served}
+        del eng
+        short = self._fe_batch(cfg, 1, (64 if cfg.is_encdec else 384) + 1,
+                               rng)
+        ld, longer = self._fe_decode_vs_prefill(model, short)
+        # the reference's own bf16 error: the plain versions in f32 on the
+        # same weights, widened; the bf16 model goes first
+        m32 = build_model(cfg.replace(dtype="float32", attn_impl="chunked"),
+                          device=self.dev, backend="plain")
+        own = dict(model.named_parameters())
+        with torch.no_grad():
+            for pname, p32 in m32.named_parameters():
+                p32.copy_(own[pname])
+        del own, model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lf, _ = m32.prefill(cbatch)
+        torch.cuda.synchronize()
+        res["f32_plain_prefill_s"] = time.perf_counter() - t0
+        lflong, _ = m32.prefill(short)
+        del m32
+        torch.cuda.empty_cache()
+        res["kernels_vs_plain_bf16"] = self._rec_agree(
+            f"{name} prefill {FE_COMPARE}, kernels vs plain", lk, lp, lf,
+            BF16_LOGIT_TOL)
+        res["decode_vs_prefill_bf16"] = self._rec_agree(
+            f"{name} decode_step after a prefill vs the longer prefill", ld,
+            longer, lflong, BF16_LOGIT_TOL)
+        return res
+
+    def _fe_train(self, base, launches, seed) -> dict:
+        """Full width, FE_TRAIN_LAYERS layers (seamless: 12 + 12), bf16,
+        remat "full", chunked attention: FE_TRAIN_STEPS steps of 4 x
+        TRAIN_SEQ positions (each step's frontend batch drawn as
+        `launch/train.py` draws it) with exact launches a step, the first
+        FE_TRAIN_PLAIN_STEPS against the plain versions from the same
+        state; step p50, peak memory, the model-FLOP share."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.configs import TrainConfig
+        from repro_torch.data.tokens import TokenPipeline
+        from repro_torch.kernels import ops
+        from repro_torch.models import build_model
+        from repro_torch.training import make_train_step, train_state_init
+        cfg = base.replace(n_layers=FE_TRAIN_LAYERS[base.name])
+        b, n_prefix = 4, 0 if cfg.is_encdec else cfg.frontend_len
+        s = TRAIN_SEQ - n_prefix          # tokens a row
+        f = cfg.frontend_len
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                           total_steps=FE_TRAIN_STEPS)
+        pipe = TokenPipeline(cfg.vocab, b, s, seed=seed)
+
+        def batch_at(i):
+            rows = np.random.default_rng([seed, i])
+            return dict(pipe.batch_at(i), frontend=rows.normal(
+                size=(b, f, cfg.frontend_dim)).astype(np.float32))
+        # per step with remat "full": each block's norms and swiglu run
+        # again in the backward's recompute; fe_norm, the encoder's norm
+        # and the final norm once; one backward each
+        fwd = self._per_call(cfg)[0]
+        enc = cfg.enc_layers
+        block_norms = fwd["rmsnorm"] - 1 - 1 - (1 if enc else 0)
+        others = fwd["rmsnorm"] - block_norms
+        per_step = {"flash_attention": 0,
+                    "rmsnorm": 2 * block_norms + others,
+                    "swiglu": 2 * fwd["swiglu"],
+                    "rmsnorm_bwd": fwd["rmsnorm"],
+                    "swiglu_bwd": fwd["swiglu"]}
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(seed))
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        probe = {k: params[k][:2].clone() for k in
+                 ("tok_embed", "segments.seg_00.0.wq", "frontend.fe_w1")}
+        n_params = sum(p.numel() for p in params.values())
+        n_front = sum(params[k].numel() for k in params
+                      if k.startswith("frontend."))
+        n_enc = sum(params[k].numel() for k in params
+                    if k.startswith("encoder."))
+        state = train_state_init(params, tcfg)
+        step = make_train_step(model, tcfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        mets, times, first = [], [], None
+        for i in range(FE_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batch_at(i))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            mets.append({k: float(v) for k, v in m.items()})
+            if first is None:
+                first = self._moe_counts()
+        counts = self._moe_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(first == per_step, f"{base.name} train: launches of one step "
+              f"{first}, expected {per_step}")
+        check(counts == {k: FE_TRAIN_STEPS * v for k, v in per_step.items()},
+              f"{base.name} train: launches of {FE_TRAIN_STEPS} steps "
+              f"{counts}")
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                  for m in mets) and [int(m["step"]) for m in mets]
+              == list(range(1, FE_TRAIN_STEPS + 1)),
+              f"{base.name} train: losses and grad norms finite, steps "
+              f"counted: {mets}")
+        for key in launches:
+            launches[key] += counts[key]
+        # the plain versions from the same state
+        del state
+        torch.cuda.empty_cache()
+        model.init(torch.Generator(device=self.dev).manual_seed(seed))
+        check(all(torch.equal(params[k][:2], v) for k, v in probe.items()),
+              f"{base.name} train: the weights drawn again from the seed "
+              "are the same")
+        state = train_state_init(params, tcfg)
+        plain = make_train_step(build_model(cfg, device="meta",
+                                            backend="plain"), tcfg)
+        ops.reset_launch_counts()
+        pmets, ptimes = [], []
+        for i in range(FE_TRAIN_PLAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = plain(state, batch_at(i))
+            torch.cuda.synchronize()
+            ptimes.append(time.perf_counter() - t0)
+            pmets.append({k: float(v) for k, v in m.items()})
+        check(all(v == 0 for v in self._moe_counts().values()),
+              f"{base.name} train: the plain run launched a kernel")
+        agree = []
+        for i, (k, p) in enumerate(zip(mets, pmets)):
+            dl = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+            dg = abs(k["grad_norm"] - p["grad_norm"]) / p["grad_norm"]
+            check(dl <= TRAIN_LOSS_TOL and dg <= TRAIN_GNORM_TOL
+                  and k["lr"] == p["lr"],
+                  f"{base.name} train: step {i + 1} kernels {k} against "
+                  f"plain {p}")
+            agree.append({"step": i + 1, "loss_rel": dl, "grad_norm_rel": dg})
+        del state, params, model, step, plain
+        torch.cuda.empty_cache()
+        p50 = statistics.median(times[2:])
+        h, dh, n_dec = cfg.n_heads, cfg.hd, cfg.n_layers
+        pos = n_prefix + s
+        if cfg.is_encdec:
+            formula = ("6 (N - N_enc - N_frontend) B S + 6 (N_enc + "
+                       "N_frontend) B F + decoder self-attention 3 x 2 B S^2 "
+                       "H Dh L + encoder attention 3 x 4 B F^2 H Dh E + "
+                       "cross-attention 3 x 4 B S F H Dh L")
+            dense = 6.0 * ((n_params - n_enc - n_front) * b * s
+                           + (n_enc + n_front) * b * f)
+            attn = (3 * 2.0 * b * s * s * h * dh * n_dec
+                    + 3 * 4.0 * b * f * f * h * dh * enc
+                    + 3 * 4.0 * b * s * f * h * dh * n_dec)
+        else:
+            formula = ("6 (N - N_frontend) B (F + S) + 6 N_frontend B F + "
+                       "3 x 2 B (F + S)^2 H Dh L")
+            dense = 6.0 * ((n_params - n_front) * b * pos
+                           + n_front * b * f)
+            attn = 3 * 2.0 * b * pos * pos * h * dh * n_dec
+        model_flops = dense + attn
+        return {
+            "layers": n_dec, "enc_layers": enc, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "remat": cfg.remat,
+            "attn_impl": cfg.attn_impl, "batch": b, "positions": pos,
+            "tokens": s, "frames": f, "steps": FE_TRAIN_STEPS,
+            "params": n_params, "init_s": init_s, "step_seconds": times,
+            f"step_p50_s_steps_3_to_{FE_TRAIN_STEPS}": p50,
+            "positions_per_s": b * pos / p50, "peak_memory_gb": peak / 1e9,
+            "model_flops_formula": formula,
+            "model_flops_per_step": model_flops,
+            "attention_flops_per_step": attn,
+            "model_flop_share_of_989_tflops":
+                model_flops / p50 / PEAK_BF16_FLOPS,
+            "metrics": mets, "launches_one_step": first, "launches": counts,
+            "plain_metrics": pmets, "plain_step_seconds": ptimes,
+            "kernels_vs_plain": agree,
+            "tol": {"loss": TRAIN_LOSS_TOL, "grad_norm": TRAIN_GNORM_TOL}}
+
+    def _fe_kernel_times(self):
+        """The kernels at the shapes the frontend families give them, bf16,
+        each checked against its plain version first: flash at internvl2's
+        (4, 16/8, 4096, 128) (group 2) and seamless's (4, 16/16, 4096, 64)
+        beside SDPA; rmsnorm at (16384, 1024) beside its two-pass kernel and
+        its backward beside the two-sweep kernel; swiglu at seamless's
+        (16384, 4096)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.rmsnorm import (
+            _two_pass, _two_sweep, one_read_packs, rmsnorm, rmsnorm_bwd)
+        from repro_torch.kernels.swiglu import swiglu
+        g = torch.Generator(device=self.dev).manual_seed(self.seed + 990)
+        bf16 = torch.bfloat16
+
+        def randn(shape, mul=1.0):
+            return (torch.randn(shape, generator=g, device=self.dev)
+                    * mul).to(bf16)
+        with torch.inference_mode():
+            for shape, (b, h, hkv, s, dh) in (
+                    ("internvl2_prefill", (4, 16, 8, 4096, 128)),
+                    ("seamless_prefill", (4, 16, 16, 4096, 64))):
+                q = randn((b, s, h, dh)).transpose(1, 2)
+                k, v = (randn((b, s, hkv, dh)).transpose(1, 2)
+                        for _ in range(2))
+                case = f"bf16 {shape} {list(q.shape)} / {list(k.shape)}"
+                got, want = flash_attention(q, k, v), \
+                    ref.flash_attention_ref(q, k, v)
+                self._lm_agree("flash_attention", case, got, want)
+                emit({"phase": "frontends", "kernel": "flash_attention",
+                      **self._flash_tight(case, q, k, v, True, got, want)})
+                del got, want
+                torch.cuda.empty_cache()
+                flops = 2.0 * s * s * dh * b * h   # both products, causal half
+                self._time_kernel(
+                    "flash_attention", shape,
+                    lambda: flash_attention(q, k, v),
+                    lambda: ref.flash_attention_ref(q, k, v),
+                    flops=flops,
+                    nbytes=2.0 * (2 * q.numel() + 2 * k.numel()),
+                    peak_flops=PEAK_BF16_FLOPS,
+                    library=lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True),
+                    q=list(q.shape), kv=list(k.shape), dtype="bfloat16",
+                    causal=True, group=h // hkv,
+                    sdpa=self._sdpa_backends(q, k, v))
+                del q, k, v
+                torch.cuda.empty_cache()
+        # rmsnorm at seamless's d 1024 (outside inference mode: the library
+        # call of the backward differentiates F.rms_norm)
+        d = 1024
+        x, w, dy = randn((16384, d)), randn((d,)), randn((16384, d))
+        xg = x.clone().requires_grad_(True)
+        wg = w.clone().requires_grad_(True)
+        self._lm_agree("rmsnorm", "bf16 (16384, 1024) seamless",
+                       rmsnorm(x, w, 1e-6), ref.rmsnorm_ref(x, w, 1e-6))
+        for got, want in zip(rmsnorm_bwd(x, w, dy, 1e-6),
+                             ref.rmsnorm_bwd_ref(x, w, dy, 1e-6)):
+            self._lm_agree("rmsnorm_bwd", "bf16 (16384, 1024) seamless",
+                           got, want)
+        kind = "one read" if one_read_packs(d, 2, True) else "two passes"
+        self._time_kernel(
+            "rmsnorm", "seamless_prefill", lambda: rmsnorm(x, w, 1e-6),
+            lambda: ref.rmsnorm_ref(x, w, 1e-6), flops=4.0 * x.numel(),
+            nbytes=2.0 * (2 * x.numel() + d),
+            library=lambda: F.rms_norm(x, (d,), w, 1e-6),
+            x=[16384, d], dtype="bfloat16", kernel_design=kind,
+            two_pass_ms=_queued_ms(torch, lambda: _two_pass(
+                x, w, 1e-6))[0])
+        self._time_kernel(
+            "rmsnorm_bwd", "seamless_train",
+            lambda: rmsnorm_bwd(x, w, dy, 1e-6),
+            lambda: ref.rmsnorm_bwd_ref(x, w, dy, 1e-6),
+            flops=12.0 * x.numel(), nbytes=2.0 * (3.0 * x.numel() + 2 * d),
+            library=lambda: torch.autograd.grad(
+                F.rms_norm(xg, (d,), wg, 1e-6), (xg, wg), dy),
+            x=[16384, d], dtype="bfloat16",
+            library_call="torch.autograd.grad through F.rms_norm (its "
+                         "forward included)", kernel_design=kind,
+            two_sweep_ms=_queued_ms(torch, lambda: _two_sweep(
+                x, w, dy, 1e-6))[0])
+        del x, w, dy, xg, wg
+        with torch.inference_mode():
+            a, u = randn((16384, 4096), 3.0), randn((16384, 4096))
+            self._lm_agree("swiglu", "bf16 (16384, 4096) seamless",
+                           swiglu(a, u), ref.swiglu_ref(a, u))
+            self._time_kernel(
+                "swiglu", "seamless_prefill", lambda: swiglu(a, u),
+                lambda: ref.swiglu_ref(a, u), flops=5.0 * a.numel(),
+                nbytes=2.0 * 3 * a.numel(), gate=list(a.shape),
+                dtype="bfloat16")
+            del a, u
+        torch.cuda.empty_cache()
 
     def kernel_rows(self) -> list[dict]:
         """One row per kernel: launches on its main path, largest error

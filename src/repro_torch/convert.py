@@ -10,7 +10,8 @@ to the JAX layout (`lm_caches_to_numpy`), so both packages' models can be
 run on the same weights and compared.  A training state goes both ways
 (`train_state_from_numpy`, `train_state_to_numpy`): the JAX package's
 `TrainState` (params, AdamW step / mu / nu, error-feedback residuals, each
-segment's leaves stacked on a leading layer dim) and the port's (tensors
+segment's and the encoder's leaves stacked on a leading layer dim) and the
+port's (tensors
 keyed by the port's parameter names), so a state saved by either package's
 `CheckpointManager` restores in the other under the JAX package's leaf
 names.
@@ -103,10 +104,11 @@ def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda",
     params)`, with `lm_head` (D, V) as the JAX package stores it (absent
     when the embeddings are tied) and each segment's leaves stacked on a
     leading layer dim (split here per layer; a segment of one layer is not
-    stacked), and the hybrid family's shared block under "shared".  The
-    f32 leaves (the MoE router, Mamba's a_log, dt_bias and d_skip) stay
-    f32 in a bf16 model.  `dtype` (a torch dtype name) overrides
-    `cfg.dtype`."""
+    stacked), the hybrid family's shared block under "shared", the
+    frontend's projector under "frontend" and the encoder under "encoder"
+    ({"segments": {leaf: (enc_layers, ...)}, "norm": (D,)}).  The f32
+    leaves (the MoE router, Mamba's a_log, dt_bias and d_skip) stay f32 in
+    a bf16 model.  `dtype` (a torch dtype name) overrides `cfg.dtype`."""
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
     model = Model(cfg, device=device)
@@ -140,6 +142,12 @@ def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda",
                  None if count == 1 else layer)
     if model.shared is not None:
         fill("shared", model.shared, tree["shared"])
+    if model.frontend is not None:
+        fill("frontend", model.frontend, tree["frontend"])
+    if model.encoder is not None:
+        for layer, block in enumerate(model.encoder.segments):
+            fill("encoder", block, tree["encoder"]["segments"], layer)
+        put(model.encoder.norm, tree["encoder"]["norm"])
     return model
 
 
@@ -147,9 +155,9 @@ def lm_caches_to_numpy(caches: dict) -> dict:
     """A port cache ({"seg_00": [cache per layer]}) in the JAX layout, each
     leaf stacked over the segment's layers (a shared or one-layer segment
     with a leading dim of 1): {"seg_00": {"k": (L, B, S, Hkv, hd), "v":
-    ...}} for attention, {"conv": (L, B, w-1, d_inner), "ssm": (L, B, H,
-    hd, N)} for Mamba, and the mLSTM's and sLSTM's states, as f32 numpy
-    arrays."""
+    ...}} for attention (and "ck", "cv" (L, B, F, Hkv, hd) for a decoder
+    block), {"conv": (L, B, w-1, d_inner), "ssm": (L, B, H, hd, N)} for
+    Mamba, and the mLSTM's and sLSTM's states, as f32 numpy arrays."""
     return {seg: {name: np.stack([c[name].detach().to(torch.float32)
                                   .cpu().numpy() for c in layers])
                   for name in layers[0]}
@@ -163,18 +171,18 @@ def _np(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def _path(tree: dict, name: str):
-    """The leaf of a nested tree at a dotted parameter name ("shared.wq"
-    -> tree["shared"]["wq"])."""
-    for part in name.split("."):
+def _path(tree: dict, name: str, sep: str = "."):
+    """The node of a nested tree at a dotted parameter name ("shared.wq"
+    -> tree["shared"]["wq"]), or at a path with another separator."""
+    for part in name.split(sep):
         tree = tree[part]
     return tree
 
 
 def _from_jax_layout(tree: dict, names, device) -> dict[str, torch.Tensor]:
-    """Per-name f32 tensors on `device` from a JAX-layout tree (a segment's
-    leaves stacked over its layers when it has more than one; the shared
-    block's under "shared")."""
+    """Per-name f32 tensors on `device` from a JAX-layout tree (a stack's
+    leaves (`layer_of`) stacked over its layers when the JAX package
+    stacks them; the shared block's under "shared")."""
     stacked = stacked_segments(names)
     out = {}
     for n in names:
@@ -182,17 +190,17 @@ def _from_jax_layout(tree: dict, names, device) -> dict[str, torch.Tensor]:
         if at is None:
             a = _np(_path(tree, n))
         else:
-            a = _np(tree["segments"][at[0]][at[2]])
+            a = _np(_path(tree, at[0], "/")[at[2]])
             a = a[at[1]] if at[0] in stacked else a
         out[n] = torch.as_tensor(np.array(a, dtype=np.float32), device=device)
     return out
 
 
 def _to_jax_layout(named: dict[str, torch.Tensor]) -> dict:
-    """The JAX-layout numpy tree of per-name tensors: each segment's layers
+    """The JAX-layout numpy tree of per-name tensors: each stack's layers
     stacked in layer order (a segment of one layer as it is), the shared
-    block's under "shared"; bfloat16 widened to f32 (exact; numpy has no
-    bfloat16)."""
+    block's under "shared", the encoder's under "encoder/segments";
+    bfloat16 widened to f32 (exact; numpy has no bfloat16)."""
     def host(t):
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
@@ -210,12 +218,13 @@ def _to_jax_layout(named: dict[str, torch.Tensor]) -> dict:
         else:
             stacks.setdefault(at[0], {}).setdefault(at[2], {})[at[1]] = t
     stacked = stacked_segments(named)
-    if stacks:
-        tree["segments"] = {
-            seg: {leaf: (np.stack([host(layers[i]) for i in sorted(layers)])
-                         if seg in stacked else host(layers[0]))
-                  for leaf, layers in leaves.items()}
-            for seg, leaves in stacks.items()}
+    for stack, leaves in stacks.items():
+        node = tree
+        for part in stack.split("/"):
+            node = node.setdefault(part, {})
+        for leaf, layers in leaves.items():
+            node[leaf] = (np.stack([host(layers[i]) for i in sorted(layers)])
+                          if stack in stacked else host(layers[0]))
     return tree
 
 

@@ -33,12 +33,15 @@ class CurationReport:
 @torch.inference_mode()
 def embed_sequences(model, batches) -> torch.Tensor:
     """Mean-pooled final hidden states as sequence embeddings (B_total, D)
-    in float32, on the model's device.  `batches`: dicts with "tokens"
-    (B, S), numpy or tensors."""
+    in float32, on the model's device (the vision prefix left out).
+    `batches`: dicts with "tokens" (B, S), numpy or tensors, and
+    "frontend" for the frontend families (the encoder-decoder's decoder
+    attends to its encoder's output)."""
     outs = []
     for batch in batches:
         x, n_prefix = model._embed(batch)
-        h, _ = model._body_train(x, model._positions(x.shape[1]))
+        enc_out = model._encode(batch) if model.cfg.is_encdec else None
+        h, _ = model._body_train(x, model._positions(x.shape[1]), enc_out)
         outs.append(h[:, n_prefix:].to(torch.float32).mean(dim=1))
     return torch.cat(outs, dim=0)
 

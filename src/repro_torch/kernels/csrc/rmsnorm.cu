@@ -17,7 +17,7 @@
 // no block barrier).  Two kernels, chosen by the row width in the wrapper
 // (`kernels/rmsnorm.py:one_read_packs`):
 //   * one read (`rmsnorm_one_read_kernel`), for the dense configurations'
-//     d_model (2048, 2560, 3072, 3584, 4096) on 16-byte aligned rows: each lane
+//     d_model (1024, 2048, 2560, 3072, 3584, 4096) on 16-byte aligned rows: each lane
 //     loads its NP 16-byte packs of the row (lane + 32 p: neighbouring
 //     lanes on neighbouring addresses, all loads in flight at once) into
 //     registers, sums their squares, and scales the same registers, so the
@@ -47,7 +47,7 @@
 // Two kernels, chosen by the wrapper (`kernels/rmsnorm.py:
 // bwd_one_read_threads`):
 //   * one read (`rmsnorm_bwd_one_read_kernel`), for the dense widths
-//     (`ONE_READ_WIDTHS`, 2048-4096) on 16-byte aligned rows.  A block of
+//     (`ONE_READ_WIDTHS`, 1024-4096) on 16-byte aligned rows.  A block of
 //     d / 8 threads takes one row at a time; thread t owns the eight
 //     columns of its 16-byte packs t + (d / 8) p, fixed for the whole
 //     launch.  Rows come in through a ring in shared memory filled by
@@ -195,13 +195,14 @@ int launch_one_read(const void* x, const void* w, void* out, long long rows,
   return (int)cudaGetLastError();
 }
 
-// The one-read kernel's pack counts: d_model 2048, 2560, 3072, 3584 and
-// 4096.
+// The one-read kernel's pack counts: d_model 1024, 2048, 2560, 3072, 3584
+// and 4096.
 template <typename T>
 int launch_packs(const void* x, const void* w, void* out, long long rows,
                  int d, float eps, int packs, cudaStream_t stream) {
   constexpr int S = sizeof(T) / 2;  // 1 for bf16 and f16, 2 for f32
   switch (packs) {
+    case 4 * S: return launch_one_read<T, 4 * S>(x, w, out, rows, d, eps, stream);
     case 8 * S: return launch_one_read<T, 8 * S>(x, w, out, rows, d, eps, stream);
     case 10 * S: return launch_one_read<T, 10 * S>(x, w, out, rows, d, eps, stream);
     case 12 * S: return launch_one_read<T, 12 * S>(x, w, out, rows, d, eps, stream);

@@ -41,10 +41,10 @@ __all__ = ["rmsnorm", "rmsnorm_launch", "one_read_packs",
            "BWD_ONE_READ_BLOCKS", "BWD_COLS"]
 
 # The widths the one-read kernel is compiled for: the configurations'
-# d_model, 2048 (granite-3-2b, internvl2-2b, olmoe-1b-7b, xlstm-1.3b), 2560
-# (qwen3-4b), 3072 (phi4-mini-3.8b), 3584 (zamba2-7b) and 4096 (qwen3-8b,
-# phi3.5-moe).
-ONE_READ_WIDTHS = (2048, 2560, 3072, 3584, 4096)
+# d_model, 1024 (seamless-m4t-medium), 2048 (granite-3-2b, internvl2-2b,
+# olmoe-1b-7b, xlstm-1.3b), 2560 (qwen3-4b), 3072 (phi4-mini-3.8b), 3584
+# (zamba2-7b) and 4096 (qwen3-8b, phi3.5-moe).
+ONE_READ_WIDTHS = (1024, 2048, 2560, 3072, 3584, 4096)
 # The element types the kernels are compiled for.
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 

@@ -7,7 +7,9 @@ The port of `repro/launch/train.py`: config registry -> model -> train
 step -> token pipeline -> checkpoint manager -> watchdog, with the same
 flags and printed lines.  The device is the card unless `--device cpu` is
 passed; on the CPU the model runs in float32, as the JAX launcher does on
-its CPU backend.  A checkpoint holds the training state in the JAX
+its CPU backend.  For the frontend families (internvl2-2b,
+seamless-m4t-medium) each step's batch adds stub embeddings under
+"frontend", drawn from (seed, step) as the JAX launcher draws them.  A checkpoint holds the training state in the JAX
 package's layout (`convert.train_state_to_numpy`), so either package's
 launcher resumes the other's.  Meshes wait for the multi-card slice:
 `--mesh` other than "none" raises.  Returns the final loss.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
@@ -86,6 +89,13 @@ def main(argv=None):
     loss = float("nan")
     for step in range(start_step, args.steps):
         batch = pipe.batch_at(step)
+        if arch.frontend:
+            # the frontend families' stub embeddings, drawn as the JAX
+            # launcher draws them
+            rng = np.random.default_rng([args.seed, step])
+            batch["frontend"] = rng.normal(
+                size=(args.batch, arch.frontend_len, arch.frontend_dim)
+            ).astype(np.float32)
         t0 = time.time()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])

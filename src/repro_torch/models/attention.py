@@ -1,5 +1,6 @@
 """GQA attention of the language model: training and prefill (chunked, or
-the flash kernel) and one-token decode over a slot KV cache.
+the flash kernel), one-token decode over a slot KV cache, and the
+encoder-decoder's cross-attention.
 
 The port of `repro/models/attention.py` for one card.  `attention_train`
 routes to `ops.flash_attention` when `cfg.attn_impl == "flash"` and the
@@ -8,7 +9,9 @@ activations are on a CUDA device, the counterpart of the JAX package's
 package does off the TPU.  Decode attention stays plain torch, as it is
 plain jnp in the JAX package.  Decode mode "cp" (context-parallel) needs a
 mesh; without one it runs as "tp", as in the JAX package.  Meshes wait for
-the multi-card slice and cross-attention for the encoder-decoder slice.
+the multi-card slice.  Cross-attention (`encode_kv` once over the encoder's
+output, then `cross_attention`: no causal mask, no RoPE) is plain torch,
+f32 logits and softmax, as it is plain jnp in the JAX package.
 Training runs the chunked attention, as the JAX package does (its flash
 kernel has no VJP, nor has the port's: `ops.flash_attention` refuses a
 tensor that needs a gradient); unless `cfg.remat` is "none", the backward
@@ -26,19 +29,23 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import apply_rope, dense_init, rope_freqs
 
 __all__ = ["init_attention", "attention_train", "attention_decode",
-           "init_kv_cache"]
+           "init_kv_cache", "cross_attention", "encode_kv"]
 
 NEG_INF = -1e30
 
 
-def init_attention(gen: torch.Generator, cfg, dtype
+def init_attention(gen: torch.Generator, cfg, dtype, cross: bool = False
                    ) -> dict[str, torch.Tensor]:
+    """wq, wk, wv, wo (and qn, kn with qk_norm); with `cross`, the
+    cross-attention's cross_wq ... cross_wo, never normed."""
     d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    p = {"wq": dense_init(gen, d, h * hd, dtype),
-         "wk": dense_init(gen, d, hkv * hd, dtype),
-         "wv": dense_init(gen, d, hkv * hd, dtype),
-         "wo": dense_init(gen, h * hd, d, dtype, scale=(h * hd) ** -0.5)}
-    if cfg.qk_norm:
+    pre = "cross_" if cross else ""
+    p = {pre + "wq": dense_init(gen, d, h * hd, dtype),
+         pre + "wk": dense_init(gen, d, hkv * hd, dtype),
+         pre + "wv": dense_init(gen, d, hkv * hd, dtype),
+         pre + "wo": dense_init(gen, h * hd, d, dtype,
+                                scale=(h * hd) ** -0.5)}
+    if cfg.qk_norm and not cross:
         p["qn"] = torch.ones((hd,), dtype=dtype, device=gen.device)
         p["kn"] = torch.ones((hd,), dtype=dtype, device=gen.device)
     return p
@@ -177,3 +184,34 @@ def attention_decode(p, x, cfg, cache, pos, mode: str = "tp", mesh=None):
     cv = _update_cache(cache["v"], v_new, pos)
     o = _decode_attend(q, ck, cv, pos, cfg.hd ** -0.5).to(x.dtype)
     return o.reshape(b, 1, -1) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def encode_kv(p, enc_out, cfg) -> dict[str, torch.Tensor]:
+    """Project the encoder's output (B, F, D) once into the cross-attention's
+    keys and values {"k", "v"} (B, F, Hkv, hd): no RoPE, no norm (a static
+    cache during decode)."""
+    b, s, _ = enc_out.shape
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    return {"k": (enc_out @ p["cross_wk"]).reshape(b, s, hkv, hd),
+            "v": (enc_out @ p["cross_wv"]).reshape(b, s, hkv, hd)}
+
+
+def cross_attention(p, x, cfg, cross_kv, enc_valid_len=None):
+    """x (B, S, D) attends over the encoder's keys and values (no causal
+    mask); `enc_valid_len` (B,), when given, masks the keys at positions
+    from it on.  f32 logits and softmax; out (B, S, D)."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["cross_wq"]).reshape(b, s, h, hd)
+    logits = _gqa_logits(q, cross_kv["k"], hd ** -0.5)
+    if enc_valid_len is not None:
+        k_pos = torch.arange(cross_kv["k"].shape[1], device=x.device)
+        keep = k_pos[None, :] < torch.as_tensor(enc_valid_len,
+                                                device=x.device)[:, None]
+        logits = torch.where(keep[:, None, None, None, :], logits, NEG_INF)
+    o = _gqa_out(torch.softmax(logits, dim=-1), cross_kv["v"]).to(x.dtype)
+    return o.reshape(b, s, -1) @ p["cross_wo"]

@@ -11,16 +11,32 @@ names:
   shared = ParameterDict                       (the hybrid family's shared
                                                 attention block, one set of
                                                 tensors for all its uses)
+  frontend = ParameterDict                     (the vision and audio
+                                                families' projector: fe_w1,
+                                                fe_w2, fe_norm)
+  encoder.segments = [per-layer ParameterDict] (the encoder-decoder's
+  encoder.norm (D,)                             encoder; the JAX package
+                                                stacks its layers under
+                                                encoder/segments/<leaf>)
 
 every tensor in the config's dtype but the MoE router and Mamba's a_log,
 dt_bias and d_skip, which are f32 (as in the JAX package).  A shared
 segment has no entry under `segments` (nor has it in the JAX package).
 
+A batch holds "tokens" (B, S) (and "labels" for the loss); the frontend
+families' batches add "frontend" (B, F, frontend_dim), precomputed patch or
+frame embeddings.  The vision family (vlm) projects them into a prefix of
+F positions before the tokens (`_embed`); the loss skips the prefix, and
+decode continues at position F + S after a prefill of S tokens.  The
+encoder-decoder (audio) runs them through its encoder (`_encode`), whose
+output every decoder block attends to.
+
 Caches mirror the segments, shared ones included: {"seg_00": [cache per
 layer]}, {"k", "v"} (B, S, Hkv, hd) for an attention block (each use of
-the shared block its own), the recurrent state for a Mamba, mLSTM or
-sLSTM block; `convert.lm_caches_to_numpy` gives them in the JAX layout.
-`decode_step` writes the caches in place.  The parameters are
+the shared block its own; a decoder block adds the static cross keys and
+values "ck", "cv" (B, F, Hkv, hd)), the recurrent state for a Mamba,
+mLSTM or sLSTM block; `convert.lm_caches_to_numpy` gives them in the JAX
+layout.  `decode_step` writes the caches in place.  The parameters are
 trainable: `loss(batch)` (also `forward`, so `torch.func.functional_call`
 can run it on a training state's tensors) is the mean next-token loss
 that `training/step.py` differentiates, each block rematerialized as
@@ -38,12 +54,15 @@ import torch
 from torch import nn
 
 from repro_torch._device import resolve_device
+from repro_torch.models.frontend import (
+    frontend_project, frontend_shapes, init_frontend,
+)
 from repro_torch.models.layers import (
     cross_entropy_chunked, embed_init, rmsnorm,
 )
 from repro_torch.models.transformer import (
-    block_shapes, init_block, init_block_cache, require_ported,
-    run_stack_decode, run_stack_train, segments_for,
+    block_shapes, init_block, init_block_cache, run_stack_decode,
+    run_stack_train, segments_for,
 )
 
 __all__ = ["Model", "build_model", "layer_of", "stacked_segments",
@@ -54,37 +73,48 @@ def _seg_key(i: int) -> str:
     return f"seg_{i:02d}"
 
 
+# The JAX path of the node that stacks the encoder's layers.
+ENCODER_STACK = "encoder/segments"
+
+
 def layer_of(name: str) -> tuple[str, int, str] | None:
-    """(segment key, layer, leaf) of a block tensor's parameter name
-    ("segments.seg_00.3.wq" -> ("seg_00", 3, "wq")); None for the others
-    ("tok_embed", "final_norm", "lm_head", the shared block's
-    "shared.wq")."""
+    """(stack, layer, leaf) of a block tensor's parameter name: `stack` is
+    the JAX path of the node holding the block's leaves, "segments/seg_00"
+    for "segments.seg_00.3.wq" and ENCODER_STACK for
+    "encoder.segments.3.wq"; None for the others ("tok_embed",
+    "final_norm", "lm_head", the shared block's "shared.wq",
+    "frontend.fe_w1", "encoder.norm")."""
     parts = name.split(".")
-    if parts[0] == "segments" and len(parts) == 4:
-        return parts[1], int(parts[2]), parts[3]
+    if len(parts) == 4 and parts[0] == "segments":
+        return f"segments/{parts[1]}", int(parts[2]), parts[3]
+    if len(parts) == 4 and parts[:2] == ["encoder", "segments"]:
+        return ENCODER_STACK, int(parts[2]), parts[3]
     return None
 
 
 def stacked_segments(names) -> set[str]:
-    """The segment keys among `names` (parameter names) whose layers the
-    JAX package stacks on a leading dim: those of more than one layer.  A
-    segment of one layer is not stacked (`init_block` without the vmap),
-    nor is a shared segment (`params["shared"]`, one set of tensors for
-    all its uses, which `segments_for` gives a count of 1)."""
+    """The stacks (`layer_of`) among `names` (parameter names) whose layers
+    the JAX package stacks on a leading dim: a segment of more than one
+    layer, and the encoder at any depth (its init vmaps over enc_layers
+    keys).  A segment of one layer is not stacked (`init_block` without
+    the vmap), nor is a shared segment (`params["shared"]`, one set of
+    tensors for all its uses, which `segments_for` gives a count of 1)."""
     layers: dict[str, set[int]] = {}
     for n in names:
         at = layer_of(n)
         if at is not None:
             layers.setdefault(at[0], set()).add(at[1])
-    return {seg for seg, ls in layers.items() if len(ls) > 1}
+    return {stack for stack, ls in layers.items()
+            if len(ls) > 1 or stack == ENCODER_STACK}
 
 
 def jax_ranks(params: dict) -> dict[str, int]:
     """name -> the rank of the tensor as the JAX package lays it out: one
-    more than its own for a block tensor of a stacked segment
-    ("segments.seg_00.3.norm1" (D,) is a row of the (L, D) leaf); its own
-    for tok_embed, lm_head, final_norm, the shared block's tensors and the
-    tensors of a segment that is not stacked (`stacked_segments`)."""
+    more than its own for a block tensor of a stack (`stacked_segments`:
+    "segments.seg_00.3.norm1" (D,) is a row of the (L, D) leaf, as is
+    "encoder.segments.3.norm1"); its own for tok_embed, lm_head,
+    final_norm, the shared block's and the frontend's tensors,
+    encoder.norm and the tensors of a segment that is not stacked."""
     stacked = stacked_segments(params)
     out = {}
     for n, t in params.items():
@@ -106,14 +136,7 @@ class Model(nn.Module):
     def __init__(self, cfg, device: str | torch.device = "cuda",
                  backend: str = "auto"):
         super().__init__()
-        if cfg.frontend:
-            raise NotImplementedError(
-                "modality frontends and the encoder-decoder are not ported "
-                "yet (ROADMAP.md queue 1: frontends and the "
-                "encoder-decoder)")
         segs = segments_for(cfg)
-        for kind, _, _ in segs:
-            require_ported(kind)
         dev = torch.device(device)
         if dev.type != "meta":
             dev = resolve_device(dev)
@@ -137,6 +160,15 @@ class Model(nn.Module):
         shared = next((kind for kind, _, is_shared in segs if is_shared),
                       None)
         self.shared = None if shared is None else block(shared)
+        self.frontend = nn.ParameterDict({
+            n: empty(*shape) for n, shape in frontend_shapes(cfg).items()
+        }) if cfg.frontend else None
+        self.encoder = None
+        if cfg.is_encdec:
+            self.encoder = nn.Module()
+            self.encoder.segments = nn.ModuleList(
+                [block("enc_attn_mlp") for _ in range(cfg.enc_layers)])
+            self.encoder.norm = empty(cfg.d_model)
 
     @property
     def device(self) -> torch.device:
@@ -166,9 +198,16 @@ class Model(nn.Module):
                            self.segments[_seg_key(i)]]
             elif all(layer is not self.shared for _, layer in blocks):
                 blocks.append((kind, self.shared))
+        if self.encoder is not None:
+            blocks += [("enc_attn_mlp", layer)
+                       for layer in self.encoder.segments]
+            self.encoder.norm.fill_(1)
         for kind, layer in blocks:
             for name, t in init_block(gen, cfg, kind, dt).items():
                 layer[name].copy_(t)
+        if self.frontend is not None:
+            for name, t in init_frontend(gen, cfg, dt).items():
+                self.frontend[name].copy_(t)
         return self
 
     # --------------------------------------------------------------- helpers
@@ -192,26 +231,50 @@ class Model(nn.Module):
                     self.backend)
         return (h @ self._lm_head())[:, 0].to(torch.float32)
 
+    def _project(self, batch: dict) -> torch.Tensor:
+        """The frontend's embeddings batch["frontend"] (B, F, frontend_dim)
+        projected and normed (fe_norm): (B, F, D)."""
+        emb = batch["frontend"]
+        if isinstance(emb, np.ndarray):
+            emb = torch.from_numpy(np.ascontiguousarray(emb))
+        p = self.frontend
+        h = frontend_project(p, torch.as_tensor(emb, device=self.device),
+                             self.cfg)
+        return rmsnorm(h, p["fe_norm"], self.cfg.norm_eps, self.backend)
+
     def _embed(self, batch: dict):
-        """-> (x (B, S, D), n_prefix): the token embeddings.  The modality
-        prefix of the frontend families is not ported (the constructor
-        refuses those configs), so n_prefix is 0."""
-        return self.tok_embed[self._ids(batch["tokens"])], 0
+        """-> (x (B, n_prefix + S, D), n_prefix): the token embeddings,
+        after the projected prefix of the vision family (n_prefix = F;
+        0 for the others, the encoder-decoder included)."""
+        x = self.tok_embed[self._ids(batch["tokens"])]
+        if not self.cfg.frontend or self.cfg.is_encdec:
+            return x, 0
+        pre = self._project(batch)
+        return torch.cat([pre.to(x.dtype), x], 1), pre.shape[1]
+
+    def _encode(self, batch: dict) -> torch.Tensor:
+        """The encoder-decoder's encoder on batch["frontend"]: the projected
+        frames through the encoder's blocks (bidirectional) and its norm,
+        (B, F, D)."""
+        cfg = self.cfg
+        x = self._project(batch)
+        x, _ = run_stack_train(self.encoder.segments, x, cfg, "enc_attn_mlp",
+                               self._positions(x.shape[1]),
+                               backend=self.backend)
+        return rmsnorm(x, self.encoder.norm, cfg.norm_eps, self.backend)
 
     def _body_train(self, x: torch.Tensor, positions: torch.Tensor,
                     enc_out=None, want_cache: bool = False):
         """The full-sequence forward of every segment -> (x (B, S, D),
         caches {"seg_00": [cache per layer]} if `want_cache`, else {}).
-        No final norm."""
-        if enc_out is not None:
-            raise NotImplementedError(
-                "the encoder-decoder is not ported yet "
-                "(ROADMAP.md queue 1: frontends and the encoder-decoder)")
+        `enc_out`: the encoder's output, which the decoder blocks attend
+        to (the other kinds ignore it).  No final norm."""
         caches = {}
         for i, (kind, count, shared) in enumerate(segments_for(self.cfg)):
             x, cache = run_stack_train(
                 self._layers(i, shared, count), x, self.cfg, kind, positions,
-                want_cache=want_cache, backend=self.backend)
+                want_cache=want_cache, backend=self.backend,
+                cross_kv=enc_out)
             if want_cache:
                 caches[_seg_key(i)] = cache
         return x, caches
@@ -221,13 +284,16 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------ loss
     def loss(self, batch: dict) -> torch.Tensor:
-        """batch["tokens"], batch["labels"] (B, S) ints (numpy or tensors)
-        -> the mean next-token cross entropy, a 0-d f32 tensor: embed, the
-        blocks (rematerialized as cfg.remat says), the final norm, and
-        `cross_entropy_chunked` in chunks of cfg.attn_chunk."""
+        """batch["tokens"], batch["labels"] (B, S) ints (numpy or tensors),
+        and "frontend" for the frontend families, -> the mean next-token
+        cross entropy over the tokens, a 0-d f32 tensor: embed (and
+        encode), the blocks (rematerialized as cfg.remat says), the final
+        norm, the vision prefix sliced off, and `cross_entropy_chunked` in
+        chunks of cfg.attn_chunk."""
         cfg = self.cfg
+        enc_out = self._encode(batch) if cfg.is_encdec else None
         x, n_prefix = self._embed(batch)
-        x, _ = self._body_train(x, self._positions(x.shape[1]))
+        x, _ = self._body_train(x, self._positions(x.shape[1]), enc_out)
         h = rmsnorm(x, self.final_norm, cfg.norm_eps, self.backend)
         if n_prefix:
             h = h[:, n_prefix:]
@@ -242,13 +308,15 @@ class Model(nn.Module):
     # --------------------------------------------------------------- prefill
     @torch.inference_mode()
     def prefill(self, batch: dict):
-        """batch["tokens"] (B, S) -> (last-token logits (B, V) f32,
-        caches {"seg_00": [cache per layer]}: {"k", "v"} (B, S, Hkv, hd)
-        of an attention block, the state after the sequence of a recurrent
-        one)."""
+        """batch["tokens"] (B, S) (and "frontend") -> (last-token logits
+        (B, V) f32, caches {"seg_00": [cache per layer]}: {"k", "v"} (B,
+        n_prefix + S, Hkv, hd) of an attention block, with "ck", "cv" (B,
+        F, Hkv, hd) of a decoder block, the state after the sequence of a
+        recurrent one)."""
+        enc_out = self._encode(batch) if self.cfg.is_encdec else None
         x, _ = self._embed(batch)
         x, caches = self._body_train(x, self._positions(x.shape[1]),
-                                     want_cache=True)
+                                     enc_out, want_cache=True)
         return self._logits(x[:, -1:]), caches
 
     # ----------------------------------------------------------------- cache
@@ -256,7 +324,9 @@ class Model(nn.Module):
     def init_cache(self, batch: int, cache_len: int) -> dict:
         """Zeroed slot caches on the model's device: {"seg_00": [cache per
         layer]}, {"k", "v"} (batch, cache_len, Hkv, hd) in the model's dtype
-        for an attention block (each use of the shared block its own), the
+        for an attention block (each use of the shared block its own; a
+        decoder block's cross keys and values "ck", "cv" zeros of
+        (batch, frontend_len, Hkv, hd), as in the JAX package), the
         recurrent state (`init_block_cache`) for the others."""
         return {_seg_key(i): [init_block_cache(self.cfg, kind, batch,
                                                cache_len, self.dtype,

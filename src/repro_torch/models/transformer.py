@@ -7,11 +7,14 @@ package stacks them and scans.  The port runs the `attn_mlp` kind (dense
 and vision-language families), the `attn_moe` kind (the MoE family:
 `models/moe.py` in place of the MLP), the hybrid family's `mamba` blocks
 (`models/ssm.py`) and its `shared_attn` block (`attn_mlp`'s layout, one
-parameter set for all its uses), and the xLSTM family's `mlstm` and
-`slstm` blocks (`models/xlstm.py`); the encoder-decoder's kinds raise
-NotImplementedError naming the ROADMAP.md item that ports them.  Every
-block norms its input with the rmsnorm kernel; the recurrent blocks'
-caches hold state, not keys and values.
+parameter set for all its uses), the xLSTM family's `mlstm` and `slstm`
+blocks (`models/xlstm.py`), and the encoder-decoder's `enc_attn_mlp`
+(`attn_mlp`'s layout; bidirectional attention, a full softmax in plain
+torch, as in the JAX package) and `dec_attn_mlp` (causal self-attention,
+then cross-attention over the encoder's output, then the MLP; its cache
+adds the static cross keys and values "ck", "cv").  Every block norms its
+input with the rmsnorm kernel; the recurrent blocks' caches hold state,
+not keys and values.
 
 Where autograd records, `run_stack_train` rematerializes each block as
 `cfg.remat` says (the counterpart of the JAX package's `_remat_wrap`):
@@ -44,7 +47,7 @@ __all__ = ["SEGMENT_KINDS", "require_ported", "segments_for", "block_shapes",
 
 # the kinds the port runs
 SEGMENT_KINDS = ("attn_mlp", "attn_moe", "shared_attn", "mamba", "mlstm",
-                 "slstm")
+                 "slstm", "enc_attn_mlp", "dec_attn_mlp")
 
 
 class _Recurrent(NamedTuple):
@@ -67,19 +70,9 @@ _RECURRENT = {
                         xlstm_mod.slstm_train, xlstm_mod.slstm_decode,
                         xlstm_mod.init_slstm_cache)}
 
-_LATER = {
-    "dec_attn_mlp": "ROADMAP.md queue 1: frontends and the encoder-decoder",
-    "enc_attn_mlp": "ROADMAP.md queue 1: frontends and the encoder-decoder",
-}
-
-
 def require_ported(kind: str) -> None:
-    if kind in SEGMENT_KINDS:
-        return
-    if kind in _LATER:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  f"({_LATER[kind]})")
-    raise ValueError(kind)
+    if kind not in SEGMENT_KINDS:
+        raise ValueError(kind)
 
 
 def segments_for(cfg) -> list[tuple[str, int, bool]]:
@@ -132,6 +125,10 @@ def block_shapes(cfg, kind: str, dtype
               "wv": (d, hkv * hd), "wo": (h * hd, d)}
     if cfg.qk_norm:
         shapes["qn"] = shapes["kn"] = (hd,)
+    if kind == "dec_attn_mlp":
+        shapes.update(norm_x=(d,), cross_wq=(d, h * hd),
+                      cross_wk=(d, hkv * hd), cross_wv=(d, hkv * hd),
+                      cross_wo=(h * hd, d))
     if kind == "attn_moe":
         shapes["norm2"] = (d,)
     elif cfg.d_ff:
@@ -151,6 +148,9 @@ def init_block(gen: torch.Generator, cfg, kind: str, dtype
     if kind in _RECURRENT:
         return {"norm1": ones(), **_RECURRENT[kind].init(gen, cfg, dtype)}
     p = {"norm1": ones(), **attn.init_attention(gen, cfg, dtype)}
+    if kind == "dec_attn_mlp":
+        p["norm_x"] = ones()
+        p.update(attn.init_attention(gen, cfg, dtype, cross=True))
     if kind == "attn_moe":
         p["norm2"] = ones()
         p.update(moe_mod.init_moe(gen, cfg, dtype))
@@ -171,24 +171,56 @@ def _ffn(p, x, cfg, backend):
     return x
 
 
-def block_train(p, x, cfg, kind: str, positions, backend: str = "auto"):
-    """-> (x, cache contribution): {"k", "v"} of an attention block, the
-    state after the sequence of a recurrent one."""
+def block_train(p, x, cfg, kind: str, positions, backend: str = "auto",
+                cross_kv=None):
+    """-> (x, cache contribution): {"k", "v"} of an attention block (and
+    the cross keys and values "ck", "cv" of a decoder block), the state
+    after the sequence of a recurrent one.  For `dec_attn_mlp`, `cross_kv`
+    is the encoder's output (B, F, D), which the block projects with its
+    own cross-attention weights."""
     require_ported(kind)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, backend)
     if kind in _RECURRENT:
         out, cache = _RECURRENT[kind].train(p, h, cfg)
         return x + out, cache
-    a, (k, v) = attn.attention_train(p, h, cfg, positions, backend)
-    return _ffn(p, x + a, cfg, backend), {"k": k, "v": v}
+    if kind == "enc_attn_mlp":
+        a, (k, v) = _bidir_attention(p, h, cfg, positions)
+    else:
+        a, (k, v) = attn.attention_train(p, h, cfg, positions, backend)
+    x = x + a
+    cache = {"k": k, "v": v}
+    if kind == "dec_attn_mlp":
+        ckv = attn.encode_kv(p, cross_kv, cfg)
+        hx = rmsnorm(x, p["norm_x"], cfg.norm_eps, backend)
+        x = x + attn.cross_attention(p, hx, cfg, ckv)
+        cache["ck"], cache["cv"] = ckv["k"], ckv["v"]
+    return _ffn(p, x, cfg, backend), cache
+
+
+def _bidir_attention(p, h, cfg, positions):
+    """The encoder's self-attention: no causal mask, one softmax over every
+    position (no chunks; plain torch, never the flash kernel, as in the JAX
+    package).  -> (out (B, S, D), (k, v))."""
+    b, s, _ = h.shape
+    q, k, v = attn._project_qkv(p, h, cfg, positions)
+    w = torch.softmax(attn._gqa_logits(q, k, cfg.hd ** -0.5), dim=-1)
+    o = attn._gqa_out(w, v).to(h.dtype)
+    return o.reshape(b, s, -1) @ p["wo"], (k, v)
 
 
 def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
-                     device) -> dict[str, torch.Tensor]:
+                     device, enc_len: int = 0) -> dict[str, torch.Tensor]:
+    """A layer's zeroed cache; a decoder block's cross keys and values
+    (batch, enc_len or cfg.frontend_len, Hkv, hd) beside its own."""
     require_ported(kind)
     if kind in _RECURRENT:
         return _RECURRENT[kind].cache(cfg, batch, dtype, device)
-    return attn.init_kv_cache(cfg, batch, cache_len, dtype, device)
+    c = attn.init_kv_cache(cfg, batch, cache_len, dtype, device)
+    if kind == "dec_attn_mlp":
+        cc = attn.init_kv_cache(cfg, batch, enc_len or cfg.frontend_len,
+                                dtype, device)
+        c["ck"], c["cv"] = cc["k"], cc["v"]
+    return c
 
 
 def block_decode(p, x, cfg, kind: str, cache, pos, decode_mode: str = "tp",
@@ -197,8 +229,14 @@ def block_decode(p, x, cfg, kind: str, cache, pos, decode_mode: str = "tp",
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, backend)
     if kind in _RECURRENT:
         return x + _RECURRENT[kind].decode(p, h, cfg, cache), cache
-    a, cache = attn.attention_decode(p, h, cfg, cache, pos, mode=decode_mode)
-    return _ffn(p, x + a, cfg, backend), cache
+    a, _ = attn.attention_decode(p, h, cfg, cache, pos, mode=decode_mode)
+    x = x + a
+    if kind == "dec_attn_mlp":
+        # the static cross keys and values of the prefill (or init_cache)
+        hx = rmsnorm(x, p["norm_x"], cfg.norm_eps, backend)
+        x = x + attn.cross_attention(p, hx, cfg,
+                                     {"k": cache["ck"], "v": cache["cv"]})
+    return _ffn(p, x, cfg, backend), cache
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -222,9 +260,11 @@ def _remat_wrap(fn, cfg):
 
 
 def run_stack_train(layers, x, cfg, kind: str, positions,
-                    want_cache: bool = False, backend: str = "auto"):
+                    want_cache: bool = False, backend: str = "auto",
+                    cross_kv=None):
     """Run the blocks of one segment in order, each rematerialized as
-    `cfg.remat` says; -> (x, [per-layer cache] or None)."""
+    `cfg.remat` says; -> (x, [per-layer cache] or None).  `cross_kv`: the
+    encoder's output, for a decoder segment."""
     block = _remat_wrap(block_train, cfg)
     caches = []
     for p in layers:
@@ -232,7 +272,7 @@ def run_stack_train(layers, x, cfg, kind: str, positions,
         # must see the ones the forward saw: under torch.func.functional_call
         # the module's own attributes are restored by then)
         p = {name: p[name] for name in p.keys()}
-        x, cache = block(p, x, cfg, kind, positions, backend)
+        x, cache = block(p, x, cfg, kind, positions, backend, cross_kv)
         if want_cache:
             caches.append(cache)
     return x, (caches if want_cache else None)

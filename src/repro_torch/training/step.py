@@ -39,13 +39,13 @@ class TrainState(NamedTuple):
 
 
 def param_groups(names) -> dict[str, str]:
-    """name -> its JAX leaf path: a segment's per-layer tensors
-    ("segments.seg_00.3.wq") share the stacked leaf "segments/seg_00/wq",
-    which the JAX package quantizes with one scale; the others are their
-    own leaves."""
+    """name -> its JAX leaf path: a stack's per-layer tensors
+    ("segments.seg_00.3.wq", "encoder.segments.3.wq") share the stacked
+    leaf ("segments/seg_00/wq", "encoder/segments/wq"), which the JAX
+    package quantizes with one scale; the others are their own leaves."""
     def leaf(n):
         at = layer_of(n)
-        return n if at is None else f"segments/{at[0]}/{at[2]}"
+        return n if at is None else f"{at[0]}/{at[2]}"
     return {n: leaf(n) for n in names}
 
 

@@ -137,7 +137,7 @@ def test_rmsnorm_one_read_at_dense_widths(d, element_size):
     assert rn.one_read_packs(d, element_size, aligned=False) == 0
 
 
-@pytest.mark.parametrize("d", [1000, 33, 1024, 2056, 5120])
+@pytest.mark.parametrize("d", [1000, 33, 1536, 2056, 5120])
 def test_rmsnorm_two_pass_at_other_widths(d):
     assert rn.one_read_packs(d, 2, aligned=True) == 0
     assert rn.one_read_packs(d, 4, aligned=True) == 0
@@ -152,7 +152,8 @@ def test_rmsnorm_one_read_pack_counts_match_the_compiled_kernel():
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "qwen3-8b", "granite-3-2b",
                                   "phi4-mini-3.8b", "zamba2-7b",
-                                  "xlstm-1.3b"])
+                                  "xlstm-1.3b", "internvl2-2b",
+                                  "seamless-m4t-medium"])
 def test_dense_configs_take_the_one_read_kernel(arch):
     assert rn.one_read_packs(get_arch(arch).d_model, 2, True) > 0
 

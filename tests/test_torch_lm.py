@@ -223,9 +223,16 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError):
         main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
               "--mesh", "single"])
+    # the frontend families build and run (`test_torch_frontend.py` and
+    # `test_torch_encdec.py` hold them to the JAX package)
     for name in ("seamless-m4t-medium", "internvl2-2b"):
-        with pytest.raises(NotImplementedError):
-            Model(reduced(get_arch(name)), device="cpu")
+        cfg = reduced(get_arch(name)).replace(dtype="float32")
+        m = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        fe = np.zeros((1, cfg.frontend_len, cfg.frontend_dim), np.float32)
+        logits, _ = m.prefill({"tokens": np.zeros((1, 3), np.int64),
+                               "frontend": fe})
+        assert logits.shape == (1, cfg.vocab)
+        assert bool(torch.isfinite(logits).all())
     cfg = reduced(get_arch("qwen3-4b")).replace(dtype="float32")
     tm = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     x = torch.zeros((1, 1, cfg.d_model))

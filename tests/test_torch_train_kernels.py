@@ -148,7 +148,7 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors():
     (2048, True, 256), (2560, True, 320), (3072, True, 384),
     (3584, True, 448), (4096, True, 512), (2048, False, 0),
     (3584, False, 0), (1000, True, 0), (33, True, 0), (8192, True, 0),
-    (2304, True, 0)])
+    (2304, True, 0), (1024, True, 128), (1024, False, 0)])
 def test_rmsnorm_bwd_one_read_threads(d, aligned, threads):
     """The dense widths on 16-byte aligned rows take the one-read backward,
     a block of d / 8 threads a row (whole warps, at most 512); every other
@@ -234,7 +234,8 @@ def one_read_bwd_emulate(x, w, dy, eps):
     return dx, dw
 
 
-@pytest.mark.parametrize("rows,d", [(5, 2048), (300, 2048), (300, 3584)])
+@pytest.mark.parametrize("rows,d", [(5, 2048), (300, 2048), (300, 3584),
+                                    (300, 1024)])
 def test_rmsnorm_bwd_one_read_order_emulated(rows, d):
     """The one-read backward's order: a row's dx alone equals its dx in
     the batch bit for bit (the order depends on d alone), two runs agree
