@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,moe,serve_clusters,curation,examples,hybrid,xlstm,frontends]
+  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,moe,serve_clusters,curation,examples,hybrid,xlstm,frontends,dryrun]
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
@@ -39,10 +39,15 @@ internvl2-2b (a patch-embedding prefix before the tokens) and
 seamless-m4t-medium (an encoder over audio frames, a decoder with
 cross-attention), each at full width in f32 against the plain versions,
 served at full width and depth (a 4 x 4096 prefill, decode steps from
-its caches and the slot engine) and trained at full width.  `--phases
-serve` or `examples` alone trains the retrieval index first; `--phases
-cluster`, `ha`, `serve_clusters`, `curation`, `hybrid`, `xlstm` or
-`frontends` alone builds the kernels first.
+its caches and the slot engine) and trained at full width.  Then the
+roofline and the dry run (`repro_torch.roofline`, `launch/dryrun.py`)
+against three cells the card runs: granite-3-2b's train step, qwen3-4b's
+prefill and its decode_step, each planned on the meta device first; no
+time may fall below its roofline bound, and the dry run's argument bytes
+must equal the card's.  `--phases serve` or `examples` alone trains the
+retrieval index first; `--phases cluster`, `ha`, `serve_clusters`,
+`curation`, `hybrid`, `xlstm`, `frontends` or `dryrun` alone builds the
+kernels first.
 
 Every phase prints one JSON line.  The line before the last lists each
 kernel with its launches on the main path, its error against the plain
@@ -67,7 +72,7 @@ import time
 ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper", "ofl",
               "bp_means", "fig3", "retrieval", "serve", "invariants",
               "cluster", "ha", "lm_serve", "train", "moe", "serve_clusters",
-              "curation", "examples", "hybrid", "xlstm", "frontends")
+              "curation", "examples", "hybrid", "xlstm", "frontends", "dryrun")
 KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream",
            "flash_attention", "rmsnorm", "swiglu", "rmsnorm_bwd", "swiglu_bwd")
 SOURCES = ("dpmeans_assign", "topk_stream", "flash_attention", "rmsnorm",
@@ -81,8 +86,9 @@ PEAK_HBM_BYTES = 3.35e12
 # The paper's §4 clustering data (benchmarks/fig4_scaling.py), cut from
 # 2^20 points when the frontends phase came in (at 2^20 pass 1's serial
 # accept scan took 85-115 s and the phase about 137 s on an H100 80GB HBM3
-# at 700 W).
-DP_N = 2**19
+# at 700 W), and to 2^18 when the dryrun phase came in (at 2^19 pass 1
+# took 54.6-71.6 s and the phase 71.2-92.0 s on the same card).
+DP_N = 2**18
 # OFL over it opens tens of thousands of facilities: the pool's capacity.
 OFL_K_MAX = 131_072
 # OFL streams the first OFL_N of those points (2^20 until the hybrid and
@@ -92,11 +98,12 @@ OFL_N = 2**18
 # The paper's §4 feature data for BP-means.
 BP_N = 2**18
 # The multi-process cluster over the paper's §4 data, cut from 2^20 points
-# for time (32 epochs of Pb = 2048 over 4 worker processes; 2^17 points
-# until the hybrid and xlstm phases came in); its chaos run and the HA run
-# take 2^15 points (16 epochs), the telemetry check's six fused passes
-# 2^14 (8 epochs).
-CLUSTER_N = 2**16
+# for time (16 epochs of Pb = 2048 over 4 worker processes; 2^17 points
+# until the hybrid and xlstm phases came in, 2^16 until the dryrun phase
+# came in: the phase 73.5-77.5 s on an H100 80GB HBM3 at 700 W); its chaos
+# run and the HA run take 2^15 points (16 epochs), the telemetry check's
+# six fused passes 2^14 (8 epochs).
+CLUSTER_N = 2**15
 CLUSTER_SMALL_N = 2**15
 TELEMETRY_N = 2**14
 # The reference's limit on telemetry's cost (benchmarks/occ_engine.py,
@@ -355,6 +362,15 @@ FE_SERVE_MAX_NEW = 32
 FE_TRAIN_LAYERS = {"internvl2-2b": 8, "seamless-m4t-medium": 12}
 FE_TRAIN_STEPS = 4
 FE_TRAIN_PLAIN_STEPS = 2
+# The dryrun phase: the roofline and the meta-device dry run held against
+# three cells on the card, bf16, full width: (a) the train phase's
+# granite-3-2b step (TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ, remat
+# "full"; p50 of steps 3-4); (b) a qwen3-4b prefill at full depth,
+# DRYRUN_BATCH x TRAIN_SEQ, flash; (c) its decode_step, DRYRUN_BATCH rows
+# against a TRAIN_SEQ-position cache, p50 of DRYRUN_DECODE_STEPS after two
+# warm-up steps.
+DRYRUN_BATCH = 4
+DRYRUN_DECODE_STEPS = 16
 
 
 def emit(obj) -> None:
@@ -3410,8 +3426,6 @@ class Smoke:
         steady = times[2:]
         p50 = statistics.median(steady)
         b, s_ = TRAIN_BATCH, TRAIN_SEQ
-        attn = 3 * 2.0 * b * s_ * s_ * cfg.n_heads * cfg.hd * cfg.n_layers
-        model_flops = 6.0 * n_params * tokens + attn
         return {
             "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
             "remat": cfg.remat, "attn_impl": cfg.attn_impl,
@@ -3420,14 +3434,40 @@ class Smoke:
             f"step_p50_s_steps_3_to_{TRAIN_STEPS}": p50,
             "tokens_per_s": tokens / p50,
             "peak_memory_gb": peak / 1e9,
-            "model_flops_per_step": model_flops,
-            "attention_flops_per_step": attn,
-            "model_flop_share_of_989_tflops": model_flops / p50 / PEAK_BF16_FLOPS,
+            "flops": self._flop_shares(cfg, b, s_, n_params, p50),
             "profiled_step": breakdown,
             "metrics": mets, "launches_one_step": first,
             "launches": counts, "plain_metrics": pmets,
             "plain_step_seconds": ptimes, "kernels_vs_plain": agree,
             "tol": {"loss": TRAIN_LOSS_TOL, "grad_norm": TRAIN_GNORM_TOL}}
+
+    def _flop_shares(self, cfg, batch: int, seq: int, n_params: int,
+                     step_s: float) -> dict:
+        """A train step's FLOPs of `batch` x `seq` tokens by
+        `repro_torch.roofline`, each as a share of 989 TFLOP/s at `step_s`:
+        `model_flops`, 6 N_active B S (the reference's convention), and
+        `analytic_flops`' step_total (every matrix product of the blocks
+        and the head, the causal attention's half, x4 with remat "full")."""
+        from repro_torch import roofline
+        from repro_torch.configs import ShapeConfig
+        from repro_torch.models.transformer import segments_for
+        shape = ShapeConfig("step", seq, batch, "train")
+        n_active = roofline.active_params(cfg, n_params)
+        counts = {
+            "model_flops": ("roofline.model_flops: 6 N_active B S",
+                            roofline.model_flops(cfg, shape, n_params,
+                                                 n_active)),
+            "analytic_flops": (
+                "roofline.analytic_flops step_total: matmuls + causal "
+                "attention, x4 with remat full",
+                roofline.analytic_flops(cfg, shape,
+                                        segments_for(cfg))["step_total"])}
+        out = {"active_params": n_active}
+        for name, (formula, flops) in counts.items():
+            out[name] = {"formula": formula, "per_step": flops,
+                         "share_of_989_tflops":
+                             flops / step_s / PEAK_BF16_FLOPS}
+        return out
 
     def _step_breakdown(self, prof, wall_s: float) -> dict:
         """Device time of a profiled train step (or prefill) by kind of
@@ -3884,7 +3924,7 @@ class Smoke:
         from repro_torch.configs import TrainConfig
         from repro_torch.data.tokens import TokenPipeline
         from repro_torch.kernels import ops
-        from repro_torch.models import build_model, moe
+        from repro_torch.models import build_model
         from repro_torch.training import make_train_step, train_state_init
         from torch.profiler import ProfilerActivity, profile
         cfg = base.replace(n_layers=MOE_TRAIN_LAYERS)
@@ -3975,23 +4015,17 @@ class Smoke:
         del state, params, model, step, plain
         torch.cuda.empty_cache()
         p50 = statistics.median(times[2:])
-        n_active = moe.active_params(cfg, n_params)
-        attn = 3 * 2.0 * b * s * s * cfg.n_heads * cfg.hd * n
-        model_flops = 6.0 * n_active * tokens + attn
+        flops = self._flop_shares(cfg, b, s, n_params, p50)
         res = {
             "layers": n, "d_model": cfg.d_model, "dtype": cfg.dtype,
             "remat": cfg.remat, "attn_impl": cfg.attn_impl,
             "moe_impl": cfg.moe.impl, "batch": b, "seq": s,
             "steps": MOE_TRAIN_STEPS, "params": n_params,
-            "active_params": n_active, "init_s": init_s,
+            "active_params": flops["active_params"], "init_s": init_s,
             "step_seconds": times,
             f"step_p50_s_steps_3_to_{MOE_TRAIN_STEPS}": p50,
             "tokens_per_s": tokens / p50, "peak_memory_gb": peak / 1e9,
-            "model_flops_per_step": model_flops,
-            "attention_flops_per_step": attn,
-            "model_flop_share_of_989_tflops":
-                model_flops / p50 / PEAK_BF16_FLOPS,
-            "profiled_step": breakdown,
+            "flops": flops, "profiled_step": breakdown,
             "metrics": mets, "launches_one_step": first, "launches": counts,
             "plain_metrics": pmets, "plain_step_seconds": ptimes,
             "kernels_vs_plain": agree,
@@ -5065,7 +5099,6 @@ class Smoke:
         del state, params, model, step, plain
         torch.cuda.empty_cache()
         p50 = statistics.median(times[2:])
-        model_flops = 6.0 * n_params * tokens
         return {
             "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
             "remat": cfg.remat, "attn_impl": cfg.attn_impl,
@@ -5074,9 +5107,7 @@ class Smoke:
             "step_seconds": times,
             f"step_p50_s_steps_3_to_{REC_TRAIN_STEPS}": p50,
             "tokens_per_s": tokens / p50, "peak_memory_gb": peak / 1e9,
-            "model_flops_per_step_6nd": model_flops,
-            "model_flop_share_of_989_tflops":
-                model_flops / p50 / PEAK_BF16_FLOPS,
+            "flops": self._flop_shares(cfg, b, s, n_params, p50),
             "profiled_step": breakdown,
             "metrics": mets, "launches_one_step": first, "launches": counts,
             "plain_metrics": pmets, "plain_step_seconds": ptimes,
@@ -5485,10 +5516,6 @@ class Smoke:
         probe = {k: params[k][:2].clone() for k in
                  ("tok_embed", "segments.seg_00.0.wq", "frontend.fe_w1")}
         n_params = sum(p.numel() for p in params.values())
-        n_front = sum(params[k].numel() for k in params
-                      if k.startswith("frontend."))
-        n_enc = sum(params[k].numel() for k in params
-                    if k.startswith("encoder."))
         state = train_state_init(params, tcfg)
         step = make_train_step(model, tcfg)
         torch.cuda.synchronize()
@@ -5551,38 +5578,18 @@ class Smoke:
         del state, params, model, step, plain
         torch.cuda.empty_cache()
         p50 = statistics.median(times[2:])
-        h, dh, n_dec = cfg.n_heads, cfg.hd, cfg.n_layers
         pos = n_prefix + s
-        if cfg.is_encdec:
-            formula = ("6 (N - N_enc - N_frontend) B S + 6 (N_enc + "
-                       "N_frontend) B F + decoder self-attention 3 x 2 B S^2 "
-                       "H Dh L + encoder attention 3 x 4 B F^2 H Dh E + "
-                       "cross-attention 3 x 4 B S F H Dh L")
-            dense = 6.0 * ((n_params - n_enc - n_front) * b * s
-                           + (n_enc + n_front) * b * f)
-            attn = (3 * 2.0 * b * s * s * h * dh * n_dec
-                    + 3 * 4.0 * b * f * f * h * dh * enc
-                    + 3 * 4.0 * b * s * f * h * dh * n_dec)
-        else:
-            formula = ("6 (N - N_frontend) B (F + S) + 6 N_frontend B F + "
-                       "3 x 2 B (F + S)^2 H Dh L")
-            dense = 6.0 * ((n_params - n_front) * b * pos
-                           + n_front * b * f)
-            attn = 3 * 2.0 * b * pos * pos * h * dh * n_dec
-        model_flops = dense + attn
         return {
-            "layers": n_dec, "enc_layers": enc, "d_model": cfg.d_model,
+            "layers": cfg.n_layers, "enc_layers": enc, "d_model": cfg.d_model,
             "dtype": cfg.dtype, "remat": cfg.remat,
             "attn_impl": cfg.attn_impl, "batch": b, "positions": pos,
             "tokens": s, "frames": f, "steps": FE_TRAIN_STEPS,
             "params": n_params, "init_s": init_s, "step_seconds": times,
             f"step_p50_s_steps_3_to_{FE_TRAIN_STEPS}": p50,
             "positions_per_s": b * pos / p50, "peak_memory_gb": peak / 1e9,
-            "model_flops_formula": formula,
-            "model_flops_per_step": model_flops,
-            "attention_flops_per_step": attn,
-            "model_flop_share_of_989_tflops":
-                model_flops / p50 / PEAK_BF16_FLOPS,
+            # the reference's count is over the S tokens a row: the vision
+            # prefix's F positions are not in it
+            "flops": self._flop_shares(cfg, b, s, n_params, p50),
             "metrics": mets, "launches_one_step": first, "launches": counts,
             "plain_metrics": pmets, "plain_step_seconds": ptimes,
             "kernels_vs_plain": agree,
@@ -5683,6 +5690,217 @@ class Smoke:
                 dtype="bfloat16")
             del a, u
         torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ dryrun
+    def dryrun(self):
+        """The roofline (`repro_torch.roofline`) and the dry run
+        (`launch/dryrun.run_cell` on the meta device) held against three
+        cells the card runs at full width in bf16 with the kernels: (a) the
+        train phase's granite-3-2b step, (b) a qwen3-4b prefill at full
+        depth, (c) its decode_step (DRYRUN_BATCH's comment).  Each cell
+        runs on meta at the same config and shape first, then on the card;
+        its time on the card must not be below the roofline's bound, the
+        dry run's argument bytes must equal the bytes of the tensors the
+        card holds for the same arguments, and its kernels must have
+        launched as often as the path runs them.  Also prints the card's
+        memory as `torch.cuda` reports it, the dry run's `fits` reference."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch import roofline
+        from repro_torch.configs import ShapeConfig, TrainConfig, get_arch
+        from repro_torch.data.tokens import TokenPipeline
+        from repro_torch.kernels import ops
+        from repro_torch.launch import dryrun
+        from repro_torch.models import build_model
+        from repro_torch.training import make_train_step, train_state_init
+        self._ensure_built()
+        name = torch.cuda.get_device_name(0)
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"dryrun: {name} total_memory {total} bytes", flush=True)
+        check(name != roofline.CARD_NAME or total == roofline.HBM_BYTES,
+              f"dryrun: {name} reports {total} bytes, roofline.HBM_BYTES "
+              f"{roofline.HBM_BYTES}")
+        check(roofline.HW["peak_flops"] == PEAK_BF16_FLOPS
+              and roofline.HW["peak_flops_f32"] == PEAK_F32_FLOPS
+              and roofline.HW["hbm_bw"] == PEAK_HBM_BYTES,
+              "dryrun: roofline.HW holds the data sheet's rates")
+        seq, rows = TRAIN_SEQ, DRYRUN_BATCH
+        rng = np.random.default_rng(self.seed + 900)
+        cells = []
+
+        def nbytes(tensors):
+            return sum(t.numel() * t.element_size() for t in tensors)
+
+        # --- (a) granite-3-2b train step ---------------------------------
+        n = TRAIN_LAYERS
+        shape = ShapeConfig(f"train_{seq}_b{TRAIN_BATCH}", seq, TRAIN_BATCH,
+                            "train")
+        rec = dryrun.run_cell("granite-3-2b", shape, variant={"n_layers": n})
+        cfg = get_arch("granite-3-2b").replace(n_layers=n)
+        tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                           total_steps=TRAIN_STEPS)
+        pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, seq, seed=self.seed)
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(self.seed + 900))
+        state = train_state_init(
+            {k: p.detach() for k, p in model.named_parameters()}, tcfg)
+        step = make_train_step(model, tcfg)
+        batches = [{k: torch.as_tensor(v, dtype=torch.int32, device=self.dev)
+                    for k, v in pipe.batch_at(i).items()}
+                   for i in range(TRAIN_STEPS)]
+        card_args = [nbytes([*state.params.values(), *state.opt.mu.values(),
+                             *state.opt.nu.values(), state.opt.step]),
+                     nbytes(batches[0].values())]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        times, losses = [], []
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        counts = self._moe_counts()
+        check(counts == {"rmsnorm": TRAIN_STEPS * (4 * n + 1),
+                         "swiglu": TRAIN_STEPS * 2 * n,
+                         "rmsnorm_bwd": TRAIN_STEPS * (2 * n + 1),
+                         "swiglu_bwd": TRAIN_STEPS * n,
+                         "flash_attention": 0},
+              f"dryrun (a): launches {counts} for {TRAIN_STEPS} steps")
+        check(all(map(math.isfinite, losses)), f"dryrun (a): losses {losses}")
+        cells.append(self._dryrun_cell(
+            "a: granite-3-2b train step", rec, statistics.median(times[2:]),
+            card_args, torch.cuda.max_memory_allocated(), counts,
+            step_seconds=times, losses=losses))
+        del state, step, model, batches, m
+        torch.cuda.empty_cache()
+
+        # --- (b) qwen3-4b prefill, full depth ----------------------------
+        base = get_arch("qwen3-4b")
+        variant = {"attn_impl": "flash"}
+        cfg = base.replace(**variant)
+        shape = ShapeConfig(f"prefill_{seq}_b{rows}", seq, rows, "prefill")
+        rec = dryrun.run_cell("qwen3-4b", shape, variant=variant)
+        model = build_model(cfg, device=self.dev).init(
+            torch.Generator(device=self.dev).manual_seed(self.seed + 901))
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (rows, seq)),
+                               dtype=torch.int32, device=self.dev)
+        param_bytes = nbytes(model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        times, caches = [], None
+        for _ in range(4):         # the first call warms up, not timed
+            del caches
+            t0 = time.perf_counter()
+            logits, caches = model.prefill({"tokens": toks})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts_b = self._moe_counts()
+        L = cfg.n_layers
+        check(counts_b == {"flash_attention": 4 * L, "rmsnorm": 4 * (2 * L + 1),
+                           "swiglu": 4 * L, "rmsnorm_bwd": 0,
+                           "swiglu_bwd": 0},
+              f"dryrun (b): launches {counts_b} for 4 prefills")
+        check(logits.shape == (rows, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              "dryrun (b): prefill logits finite, (rows, vocab)")
+        cells.append(self._dryrun_cell(
+            "b: qwen3-4b prefill", rec, statistics.median(times[1:]),
+            [param_bytes, nbytes([toks])], torch.cuda.max_memory_allocated(),
+            counts_b, seconds=times))
+
+        # --- (c) qwen3-4b decode_step ------------------------------------
+        shape = ShapeConfig(f"decode_{seq}_b{rows}", seq, rows, "decode")
+        rec = dryrun.run_cell("qwen3-4b", shape, variant=variant)
+        # the engine's caches (`init_cache`), holding the prefill's keys
+        # and values; each row decodes its next token at the last position
+        cache = model.init_cache(rows, seq)
+        with torch.inference_mode():
+            for mine, theirs in zip(
+                    [c for layers in cache.values() for c in layers],
+                    [c for layers in caches.values() for c in layers]):
+                for k in mine:
+                    mine[k].copy_(theirs[k])
+        del caches, mine, theirs
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((rows,), seq - 1, dtype=torch.int32, device=self.dev)
+        card_args = [param_bytes,
+                     nbytes([t for layers in cache.values() for c in layers
+                             for t in c.values()]),
+                     nbytes([tok]), nbytes([pos])]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        times = []
+        for _ in range(2 + DRYRUN_DECODE_STEPS):
+            t0 = time.perf_counter()
+            out, cache = model.decode_step(cache, tok, pos)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts_c = self._moe_counts()
+        calls = 2 + DRYRUN_DECODE_STEPS
+        check(counts_c == {"flash_attention": 0,
+                           "rmsnorm": calls * (2 * L + 1),
+                           "swiglu": calls * L, "rmsnorm_bwd": 0,
+                           "swiglu_bwd": 0},
+              f"dryrun (c): launches {counts_c} for {calls} decode steps")
+        check(out.shape == (rows, cfg.vocab)
+              and bool(torch.isfinite(out).all()),
+              "dryrun (c): decode logits finite, (rows, vocab)")
+        cells.append(self._dryrun_cell(
+            "c: qwen3-4b decode_step", rec,
+            statistics.median(times[2:]), card_args,
+            torch.cuda.max_memory_allocated(), counts_c, seconds=times))
+        del model, cache, logits, out
+        torch.cuda.empty_cache()
+        self.path_launches["dryrun"] = {
+            k: counts[k] + counts_b[k] + counts_c[k] for k in counts}
+        emit({"phase": "dryrun", "card": self.card, "device_name": name,
+              "total_memory": total, "hw": roofline.HW,
+              "launches": self.path_launches["dryrun"],
+              "bound_over_measured": {c["cell"]: c["bound_over_measured"]
+                                      for c in cells}})
+
+    def _dryrun_cell(self, cell, rec, measured_s, card_args, card_peak,
+                     launches, **extra) -> dict:
+        """One cell's line: the dry run's analytic FLOPs and bytes, its
+        roofline terms at the H100's constants and bound against the time
+        on the card, its meta FLOP count, and its argument and peak bytes
+        beside the card's; fails if the time is below the bound or the
+        argument bytes differ."""
+        terms, mem, cost = rec["roofline"], rec["memory"], rec["cost"]
+        bound = max(terms["compute_s"], terms["memory_s"],
+                    terms["collective_s"])
+        line = {
+            "phase": "dryrun", "cell": cell, "card": self.card,
+            "shape": rec["shape"], "variant": rec["variant"],
+            "analytic_flops": cost["flops_per_dev"],
+            "analytic_bytes": cost["bytes_per_dev"],
+            "compute_s": terms["compute_s"], "memory_s": terms["memory_s"],
+            "dominant": terms["dominant"], "bound_s": bound,
+            "measured_s": measured_s, "bound_over_measured": bound / measured_s,
+            "meta_flops": cost["meta_flops"],
+            "argument_bytes": mem["argument_bytes"],
+            "argument_bytes_each": mem["argument_bytes_each"],
+            "card_argument_bytes_each": card_args,
+            "peak_bytes": mem["peak_bytes"], "fits": mem["fits"],
+            "card_max_memory_allocated": card_peak,
+            "peak_counted_on": rec["meta"]["counted_on"],
+            "dryrun_run_s": rec["timings"]["run_s"], "launches": launches,
+            **extra}
+        emit(line)
+        check(rec["status"] == "ok" and rec["n_chips"] == 1,
+              f"dryrun {cell}: record {rec['status']}")
+        check(bound / measured_s <= 1.0,
+              f"dryrun {cell}: measured {measured_s} s is below the "
+              f"roofline bound {bound} s")
+        check(mem["argument_bytes_each"] == card_args,
+              f"dryrun {cell}: argument bytes {mem['argument_bytes_each']} "
+              f"on meta, {card_args} on the card")
+        return line
 
     def kernel_rows(self) -> list[dict]:
         """One row per kernel: launches on its main path, largest error

@@ -36,8 +36,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
 
-__all__ = ["init_moe", "moe_apply", "moe_shapes", "capacity",
-           "active_params"]
+__all__ = ["init_moe", "moe_apply", "moe_shapes", "capacity"]
 
 
 def moe_shapes(cfg, dtype) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
@@ -68,17 +67,6 @@ def capacity(cfg, s: int) -> int:
     """Slots per expert and sequence: min(ceil(S k / E * cf), S)."""
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     return min(int(math.ceil(s * k / e * cfg.moe.capacity_factor)), s)
-
-
-def active_params(cfg, n_params: int) -> int:
-    """N_active: the parameters a token runs through, the experts' scaled
-    by top_k / n_experts (the port's copy of the JAX package's
-    `roofline.active_params`); n_params for a model without experts."""
-    if cfg.moe is None:
-        return n_params
-    e, k = cfg.moe.n_experts, cfg.moe.top_k
-    expert = cfg.n_layers * 3 * cfg.d_model * cfg.d_ff * e
-    return int(n_params - expert + expert * (k / e))
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -231,6 +219,16 @@ def _ragged_dot(xs, w, sizes: list[int]):
     return torch.cat(outs, 0)
 
 
+def _group_sizes(flat_e: torch.Tensor, e: int) -> list[int]:
+    """Rows per expert.  A meta tensor holds no routing: there (the dry
+    run) the same rows split evenly, which costs the grouped products the
+    same FLOPs and bytes as any routing."""
+    if flat_e.device.type == "meta":
+        q, r = divmod(flat_e.numel(), e)
+        return [q + (i < r) for i in range(e)]
+    return torch.bincount(flat_e, minlength=e).tolist()
+
+
 def _moe_ragged(p, x, cfg, backend):
     """Sort by expert, one product per expert group: drop-free."""
     b, s, d = x.shape
@@ -244,7 +242,7 @@ def _moe_ragged(p, x, cfg, backend):
     order = torch.argsort(flat_e, stable=True)
     rows = flat_tok[order]
     xe = xf[rows]                                              # (T*k, D)
-    sizes = torch.bincount(flat_e, minlength=e).tolist()
+    sizes = _group_sizes(flat_e, e)
     g = _ragged_dot(xe, p["we_g"], sizes)
     u = _ragged_dot(xe, p["we_u"], sizes)
     h = ops.swiglu(g, u, backend=backend)

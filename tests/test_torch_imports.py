@@ -9,7 +9,8 @@ over a loopback `DeltaChannel`, recovers it from a `DeltaWAL`, then builds
 language model's `ServeEngine`, curates the embeddings of two token
 batches, takes one train step of that model (the optimizer and the train
 step) and one of `reduced(olmoe-1b-7b)` (the MoE block), and imports the train-while-serve and training launchers and every
-example.
+example, then dry-runs a narrow granite-3-2b decode cell on the meta device
+(`roofline`, `launch/specs`, `launch/dryrun`).
 """
 import ast
 import os
@@ -119,6 +120,15 @@ from repro_torch.examples import (
     crash_recovery, data_curation, observability, quickstart,
     retrieval_index, serve_lm, streaming_clusters, train_lm)
 assert serve_clusters.ServeDemoConfig().device == "cuda"
+from repro_torch import roofline
+from repro_torch.launch import dryrun, specs
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()):   # its one-line summary
+    rec = dryrun.run_cell("granite-3-2b", "decode_32k", variant=dict(
+        n_layers=1, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab=128))
+assert rec["status"] == "ok" and rec["n_chips"] == 1
+assert roofline.HW["peak_flops"] == 989e12
 assert not _build._LIBS   # the CPU path never builds or loads a kernel
 print("OK", int(res.pool.count))
 """

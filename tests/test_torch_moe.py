@@ -17,8 +17,8 @@ sixty-four is tested:
     package's `tests/test_models_smoke.py` holds its own;
   * the VJPs of each impl (with respect to the input and every weight)
     against `jax.vjp`, within 1e-4 of each gradient's largest magnitude;
-  * `active_params` (the model-FLOP count of `chip_smoke.py`) equal to the
-    JAX package's `roofline.active_params`.
+  * `repro_torch.roofline.active_params` (the model-FLOP count of
+    `chip_smoke.py`) equal to the JAX package's `roofline.active_params`.
 
 The port runs on the CPU here, where `ops.swiglu` takes its plain
 version; `chip_smoke.py` drives the same functions through the swiglu
@@ -213,10 +213,11 @@ def test_active_params_equal_jax(name):
     from repro.models import build_model as jbuild
     from repro.roofline import active_params as jactive
     from repro_torch.models import Model
+    from repro_torch.roofline import active_params
     for layers in (None, 8):
         jcfg, cfg = JARCHS[name], get_arch(name)
         if layers:
             jcfg, cfg = (c.replace(n_layers=layers) for c in (jcfg, cfg))
         n = Model(cfg, device="meta").param_count()
         assert n == jbuild(jcfg).param_count()
-        assert moe.active_params(cfg, n) == jactive(jcfg, n)
+        assert active_params(cfg, n) == jactive(jcfg, n)
