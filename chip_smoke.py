@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,moe,serve_clusters,curation,examples,hybrid,xlstm,frontends,dryrun]
+  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,moe,serve_clusters,curation,examples,hybrid,xlstm,frontends,dryrun,mesh]
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
@@ -44,10 +44,17 @@ roofline and the dry run (`repro_torch.roofline`, `launch/dryrun.py`)
 against three cells the card runs: granite-3-2b's train step, qwen3-4b's
 prefill and its decode_step, each planned on the meta device first; no
 time may fall below its roofline bound, and the dry run's argument bytes
-must equal the card's.  `--phases serve` or `examples` alone trains the
+must equal the card's.  Last, the paper's path on a mesh: four ranks
+(processes) share the one card under gloo, each proposing its quarter of
+every epoch with the nearest-center kernel; DP-means, OFL and BP-means
+on every rank equal the one-process run bit for bit, mesh serving equals
+the meshless service (a k = 100 top-k query, the top-k kernel's wide
+route, among its requests), the compressed psum runs on the card's
+tensors, and a checkpoint of a (2, 2) mesh restores onto (1, 2).
+`--phases serve` or `examples` alone trains the
 retrieval index first; `--phases cluster`, `ha`, `serve_clusters`,
-`curation`, `hybrid`, `xlstm`, `frontends` or `dryrun` alone builds the
-kernels first.
+`curation`, `hybrid`, `xlstm`, `frontends`, `dryrun` or `mesh` alone
+builds the kernels first.
 
 Every phase prints one JSON line.  The line before the last lists each
 kernel with its launches on the main path, its error against the plain
@@ -72,7 +79,8 @@ import time
 ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper", "ofl",
               "bp_means", "fig3", "retrieval", "serve", "invariants",
               "cluster", "ha", "lm_serve", "train", "moe", "serve_clusters",
-              "curation", "examples", "hybrid", "xlstm", "frontends", "dryrun")
+              "curation", "examples", "hybrid", "xlstm", "frontends", "dryrun",
+              "mesh")
 KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream",
            "flash_attention", "rmsnorm", "swiglu", "rmsnorm_bwd", "swiglu_bwd")
 SOURCES = ("dpmeans_assign", "topk_stream", "flash_attention", "rmsnorm",
@@ -87,13 +95,16 @@ PEAK_HBM_BYTES = 3.35e12
 # 2^20 points when the frontends phase came in (at 2^20 pass 1's serial
 # accept scan took 85-115 s and the phase about 137 s on an H100 80GB HBM3
 # at 700 W), and to 2^18 when the dryrun phase came in (at 2^19 pass 1
-# took 54.6-71.6 s and the phase 71.2-92.0 s on the same card).
+# took 54.6-71.6 s and the phase 71.2-92.0 s on the same card).  2^18 is
+# the floor: below it the serial validator no longer runs at a scale near
+# the paper's, so a new phase takes its time from elsewhere.
 DP_N = 2**18
 # OFL over it opens tens of thousands of facilities: the pool's capacity.
 OFL_K_MAX = 131_072
 # OFL streams the first OFL_N of those points (2^20 until the hybrid and
 # xlstm phases came in: 105 s of the script; 2^19, 56 s of its stream on an
-# H100 80GB HBM3 at 700 W, until the frontends phase came in).
+# H100 80GB HBM3 at 700 W, until the frontends phase came in).  2^18 is
+# the floor, as DP_N's is.
 OFL_N = 2**18
 # The paper's §4 feature data for BP-means.
 BP_N = 2**18
@@ -145,11 +156,11 @@ LOGIT_TOL = 1e-4
 BF16_LOGIT_TOL = 0.05
 # The full-depth engine run: 8 requests of prompt SERVE_PROMPT on 4 slots,
 # each to this many new tokens, so that the decode-tick percentiles rest
-# on 128 ticks (cut from 256 new tokens when the moe phase came in, and
-# from 128 when the hybrid and xlstm phases came in, with the prompt from
-# 64: the engine prefills a prompt token by token, 512 of its 640 decode
-# calls).
-SERVE_MAX_NEW = 64
+# on 64 ticks (cut from 256 new tokens when the moe phase came in, from
+# 128 when the hybrid and xlstm phases came in, with the prompt from 64:
+# the engine prefills a prompt token by token, and from 64 when the mesh
+# phase came in: each decode call is dispatched from the host).
+SERVE_MAX_NEW = 32
 SERVE_PROMPT = 32
 # The train-while-serve pipeline: points streamed per tenant (the paper's
 # Pb = 2048, 32 epochs each) and the QoS A/B tenant's stream.
@@ -217,7 +228,7 @@ MOE_TIE_MARGIN = 1e-6
 # reference's design.
 MOE_BF16_LOGIT_TOL = 0.1
 MOE_PREFILL_BATCH = 4
-MOE_SERVE_MAX_NEW = 32     # cut from 64 when the hybrid phase came in
+MOE_SERVE_MAX_NEW = 16     # cut from 64 (hybrid phase), 32 (mesh phase)
 # Training olmoe at full width and MOE_TRAIN_LAYERS of its 16 layers (its
 # 12 bytes a parameter at full depth, 83 GB, exceed the card; cut from 8
 # to 4 when the hybrid and xlstm phases came in): bf16,
@@ -264,8 +275,9 @@ REC_F32_DECODE_TOL = 2e-3
 REC_F32_GRAD_TOL = {"hybrid": 1e-3, "xlstm": 1e-3}
 # (b) Full depth, bf16, flash attention: a 4 x TRAIN_SEQ prefill, then 4
 # requests of prompt REC_SERVE_PROMPT and REC_SERVE_MAX_NEW new tokens on
-# 4 slots (both cut from 64 when the frontends phase came in: the engine
-# dispatches each decode call from the host, 49-87 ms a call).
+# 4 slots (both cut from 64 when the frontends phase came in, the new
+# tokens to 16 when the mesh phase came in: the engine dispatches each
+# decode call from the host, 49-87 ms a call).
 # Last-token logits of two routes (kernels against plain versions;
 # decode_step after a prefill against one longer prefill) agree within
 # the larger of REC_BF16_LOGIT_TOL of max |logit| and the reference's own
@@ -300,10 +312,11 @@ REC_SEG0_TOL = 0.05
 # 21 s in xlstm, whose sLSTM steps the host dispatches one by one.
 REC_COMPARE = (2, 1024)
 # xlstm's profiled prefill: 4 x this many tokens (its 4 x 4096 prefill
-# takes 8.8 s under the profiler, a quarter of them the same work).
-REC_PROFILE_XLSTM = 1024
+# takes 8.8 s under the profiler, an eighth of them the same work; 1024
+# until the mesh phase came in).
+REC_PROFILE_XLSTM = 512
 REC_SERVE_PROMPT = 32
-REC_SERVE_MAX_NEW = 32
+REC_SERVE_MAX_NEW = 16
 # (c) Training at full width: zamba2 at REC_TRAIN_LAYERS layers (12 bytes
 # a parameter: 81 GB at 81 layers; 12 layers are two segments of six and
 # two uses of the shared block, 16.4 GB), xlstm at 8 (one segment of each
@@ -314,10 +327,11 @@ REC_SERVE_MAX_NEW = 32
 # REC_TRAIN_SEQ["xlstm"]: autograd records its sLSTM's loop of one step a
 # token, about 30 ops a step, twice (remat), and differentiates it, all
 # dispatched from the host (a step of 4 x 2048 took 6.2 s, 91 % of it
-# idle; 4 x 1024 4.4 s, 92 % idle; on an H100 80GB HBM3 at 700 W).
+# idle; 4 x 1024 4.4 s, 92 % idle; on an H100 80GB HBM3 at 700 W).  Cut
+# from 1024 to 512 when the mesh phase came in.
 REC_TRAIN_LAYERS = {"hybrid": 12, "xlstm": 8}
 REC_TRAIN_BATCH = 4
-REC_TRAIN_SEQ = {"hybrid": 4096, "xlstm": 1024}
+REC_TRAIN_SEQ = {"hybrid": 4096, "xlstm": 512}
 REC_TRAIN_STEPS = 4
 REC_TRAIN_PLAIN_STEPS = 2
 # The grad norm's bar against the plain run: TRAIN_GNORM_TOL, but 0.1 for
@@ -349,11 +363,12 @@ FE_F32_SEQ = 512
 # versions in f32 on an FE_COMPARE (B, positions) batch, held as
 # `_rec_agree` holds them (BF16_LOGIT_TOL, or REC_FLOOR_MUL times the bf16
 # run's own distance from f32); a ServeEngine run of 4 requests of prompt
-# FE_SERVE_PROMPT and FE_SERVE_MAX_NEW new tokens on 4 slots.
+# FE_SERVE_PROMPT and FE_SERVE_MAX_NEW new tokens on 4 slots (cut from 32
+# when the mesh phase came in).
 FE_TICKS = 32
 FE_COMPARE = (2, 1024)
 FE_SERVE_PROMPT = 32
-FE_SERVE_MAX_NEW = 32
+FE_SERVE_MAX_NEW = 16
 # (c) Training at full width: internvl2 at FE_TRAIN_LAYERS of its 24
 # layers, seamless at its full 12 + 12; bf16, remat "full", chunked
 # attention, 4 x TRAIN_SEQ positions, FE_TRAIN_STEPS AdamW steps, the first
@@ -371,6 +386,22 @@ FE_TRAIN_PLAIN_STEPS = 2
 # warm-up steps.
 DRYRUN_BATCH = 4
 DRYRUN_DECODE_STEPS = 16
+# The mesh phase: MESH_RANKS ranks share the one card.  The paper's setting
+# over MESH_DP_N points of its data (cut from 2^20 as dp_paper's is, and
+# further to fit the phase in about 45 s: four ranks re-execute the
+# validator side by side), OFL over the first MESH_OFL_N of them into a
+# pool of MESH_OFL_K_MAX slots, BP-means over MESH_BP_N feature points, the
+# invariants over the first MESH_INV_N, MESH_REQUESTS requests of each
+# kind.  A rank still running after MESH_TIMEOUT_S is killed (its
+# collectives time out after as long).
+MESH_RANKS = 4
+MESH_DP_N = 2**15
+MESH_OFL_N = 2**14
+MESH_OFL_K_MAX = 16384
+MESH_BP_N = 2**13
+MESH_INV_N = 4096
+MESH_REQUESTS = 256
+MESH_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
@@ -1036,6 +1067,17 @@ class Smoke:
             # distances that fall with the center index: each half tile
             # beats every list built before it, the most insertions
             ("falling", dict(n=64, k=4096, d=16, count=4096), 8),
+            # k > 64, the wide route: at the serving shape (lists in
+            # shared memory, five splits), a pool smaller than k, and a
+            # list past shared memory (4,096 keys in global scratch) over
+            # fourteen splits
+            ("k65", dict(n=64, k=131072, d=16, count=110000), 65),
+            ("k100", dict(n=64, k=131072, d=16, count=110000), 100),
+            ("k256", dict(n=64, k=131072, d=16, count=110000), 256),
+            ("k100_gt_pool", dict(n=37, k=64, d=19, count=60, holes=True),
+             100),
+            ("k3000_global", dict(n=20, k=131072, d=16, count=110000,
+                                  holes=True), 3000),
         ]
         outs = {}
         for i, (name, kw, k) in enumerate(cases):
@@ -1082,8 +1124,27 @@ class Smoke:
         check(torch.equal(three[0], d2b[:, :3])
               and torch.equal(three[1], ib[:, :3]),
               "topk k=3 == first 3 columns of k=8, bitwise")
+        # the wide route: rows alone == batch; its first 64 columns are the
+        # register-list kernel's k = 64, bit for bit (the same distances
+        # and the same selection order)
+        (xw, cw, mw, nw), (d2w, iw) = outs["k100"]
+        alone = [topk_stream(xw[r:r + 1].contiguous(), cw, mw, nw, 100)
+                 for r in range(0, xw.shape[0], 7)]
+        check(torch.equal(torch.cat([a[0] for a in alone]), d2w[::7])
+              and torch.equal(torch.cat([a[1] for a in alone]), iw[::7]),
+              "wide topk row independence: rows alone == batch, bitwise")
+        d64, i64 = topk_stream(xw, cw, mw, nw, 64)
+        check(torch.equal(d64, d2w[:, :64]) and torch.equal(i64, iw[:, :64]),
+              "wide topk k=100: first 64 columns == k=64 kernel, bitwise")
+        d65, i65 = topk_stream(xw, cw, mw, nw, 65)
+        check(torch.equal(d65, d2w[:, :65]) and torch.equal(i65, iw[:, :65]),
+              "wide topk k=65 == first 65 columns of k=100, bitwise")
+        _, (d2g, ig) = outs["k100_gt_pool"]
+        check(bool(torch.isinf(d2g[:, 64:]).all())
+              and bool((ig[:, 64:] == -1).all()),
+              "wide topk: columns past the pool are (inf, -1)")
         for what, call in (
-                ("k > 64", lambda: topk_stream(x, c, mask, cnt, 65)),
+                ("k = 0", lambda: topk_stream(x, c, mask, cnt, 0)),
                 ("f64 input", lambda: topk_stream(x.double(), c, mask, cnt,
                                                   4)),
                 ("cpu tensor on the cuda backend",
@@ -1102,7 +1163,7 @@ class Smoke:
               "top1_eq_assign": True, "row_independence": True,
               "raises": True, "max_abs_err": self.max_abs_err["topk_stream"],
               "ptxas": self._ptxas_checked("topk_stream")})
-        for shape, k in (("serve_flat", 8), ("routing", 4)):
+        for shape, k in (("serve_flat", 8), ("routing", 4), ("k100", 100)):
             (x, c, mask, cnt), _ = outs[shape]
             n, d = x.shape
             active = min(int(cnt), c.shape[0])
@@ -1136,6 +1197,17 @@ class Smoke:
         d2f, if_ = topk_stream(x, c, mask, cnt, 8)
         check(torch.equal(d2m, d2f) and torch.equal(im, if_),
               "multiprobe over every cell == flat top-k, bitwise")
+        # the wide route (k > 64) too: every cell == flat, bit for bit
+        d2mw, imw = topk_multiprobe_stream(x, h.fine, h.fine_ids,
+                                           h.fine_mask, cells, member, uc, 100)
+        d2fw, ifw = topk_stream(x, c, mask, cnt, 100)
+        check(torch.equal(d2mw, d2fw) and torch.equal(imw, ifw),
+              "multiprobe k=100 over every cell == flat top-k, bitwise")
+        d2pw, ipw = ops.serve_topk_multiprobe(
+            x, h.fine, h.fine_ids, h.fine_mask, cells, member, 100,
+            backend="plain")
+        self._topk_agree("topk_multiprobe_stream", "mp_full_k100", x, c,
+                         d2mw, imw, d2pw, ipw)
         d2p, ip = ops.serve_topk_multiprobe(
             x, h.fine, h.fine_ids, h.fine_mask, cells, member, 8,
             backend="plain")
@@ -1154,7 +1226,7 @@ class Smoke:
         member[0] = False
         member[1, :4] = True   # one query a member of every counted rank
         uc = torch.full((1,), 4, dtype=torch.int32, device=dev)
-        for k in (1, 8, 64):
+        for k in (1, 8, 64, 100):
             d2m, im = topk_multiprobe_stream(
                 x, h.fine, h.fine_ids, h.fine_mask, cells, member, uc, k)
             d2p, ip = ops.serve_topk_multiprobe(
@@ -1954,6 +2026,9 @@ class Smoke:
                                     routing_differs}
         res["latency"] = self._latency(store, chunks, bucket, topk, probes)
         self._time_multiprobe(qt[:bucket].contiguous(), h, probes, topk)
+        # the wide route (k > 64) at the same microbatch
+        self._time_multiprobe(qt[:bucket].contiguous(), h, probes, 100,
+                              shape="serve_multiprobe_k100")
         self._time("serve_score", qt[:bucket].contiguous(), snap.centers,
                    snap.mask, torch.full((1,), snap.count, dtype=torch.int32,
                                          device=self.dev), sibling=True)
@@ -2015,7 +2090,8 @@ class Smoke:
             out[f"{name}_p99_ms"] = m["request_p99_ms"]
         return out
 
-    def _time_multiprobe(self, xb, h, probes, topk):
+    def _time_multiprobe(self, xb, h, probes, topk,
+                         shape="serve_multiprobe"):
         """The multi-probe kernel at the serving shape: one 64-query
         microbatch, p probes, over the union the index gives it.  The bound
         counts what these inputs need: 2 D operations for each member pair
@@ -2049,7 +2125,7 @@ class Smoke:
               f"multiprobe: the kernel formed {formed} distances for "
               f"{member_rows} member pairs")
         self._time_kernel(
-            "topk_multiprobe_stream", "serve_multiprobe",
+            "topk_multiprobe_stream", shape,
             lambda: topk_multiprobe_stream(xb, h.fine, h.fine_ids,
                                            h.fine_mask, union, member, uc,
                                            topk),
@@ -2132,8 +2208,8 @@ class Smoke:
         # stream in ragged pieces + flush == one-shot first pass
         eng_s = OCCEngine(DPMeansTransaction(lam, k_max), pb, device="cuda")
         parts = [eng_s.partial_fit(x[a:b]) for a, b in
-                 ((0, 1000), (1000, 15001), (15001, 23889),
-                  (23889, DP_INV_N))]
+                 ((0, 1000), (1000, 7501), (7501, 11945),
+                  (11945, DP_INV_N))]
         parts.append(eng_s.flush())
         parts = [p for p in parts if p is not None]
         r1 = full[0]
@@ -5902,6 +5978,129 @@ class Smoke:
               f"on meta, {card_args} on the card")
         return line
 
+    # -------------------------------------------------------------- mesh
+    def mesh(self):
+        """The paper's path on a mesh: MESH_RANKS spawned ranks share the
+        one card under gloo (NCCL refuses two ranks on one device), each
+        proposing its contiguous quarter of every epoch with
+        `dpmeans_assign` on the card, the proposals all-gathered and the
+        validator re-executed on every rank.  DP-means, OFL and BP-means
+        (`_mesh_paths`) on every rank equal the one-process run here on
+        the card bit for bit; the mesh invariants hold; mesh serving of
+        the published DP-means snapshot equals the meshless service
+        response for response (and a k = 100 top-k query from the OFL
+        snapshot, the kernel's wide route); the compressed psum over a
+        (4,) "pod" mesh on the card's tensors is within the reference's
+        bound of the exact sum and equals the same ranks' result on the
+        host's tensors; a checkpoint of a (2, 2) mesh restores onto the
+        (1, 2) mesh two failures leave.  The parent builds the kernels and
+        runs the one-process references alone first; the ranks only load
+        the libraries.  A rank that fails fails the phase."""
+        import multiprocessing
+        import pickle
+        import socket
+        from repro_torch.serving import SnapshotStore
+        self._ensure_built()
+        ctx = multiprocessing.get_context("spawn")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        go = ctx.Event()
+        with tempfile.TemporaryDirectory() as out_dir:
+            # the ranks import while the one-process references run; they
+            # create their CUDA contexts after `go`
+            procs = [ctx.Process(target=_mesh_rank,
+                                 args=(r, MESH_RANKS, port, out_dir,
+                                       self.seed, go), daemon=True)
+                     for r in range(MESH_RANKS)]
+            for p in procs:
+                p.start()
+            one, one_s, x = _mesh_paths(None, "cuda", self.seed)
+            store = SnapshotStore(device="cuda")
+            store.publish_pool(one["dp_means"].pool)
+            one_serve = _mesh_serve(store, x, None)
+            go.set()
+            t0 = time.perf_counter()
+            deadline = time.monotonic() + MESH_TIMEOUT_S
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            codes = [p.exitcode for p in procs]
+            check(not hung and codes == [0] * MESH_RANKS,
+                  f"mesh: rank exit codes {codes}, still running {hung}")
+            ranks = []
+            for r in range(MESH_RANKS):
+                with open(os.path.join(out_dir, f"{r}.pkl"), "rb") as f:
+                    ranks.append(pickle.load(f))
+        ranks_s = time.perf_counter() - t0
+        want = {k: _host(v) for k, v in one.items()}
+        for r in ranks:
+            for name in want:
+                check(_host_equal(r["results"][name], want[name]),
+                      f"mesh: rank {r['rank']}'s {name} == one process, "
+                      "bitwise")
+            for key, ok in r["invariants"].items():
+                check(ok, f"mesh: rank {r['rank']} {key}")
+            check(r["serve_eq_meshless"],
+                  f"mesh: rank {r['rank']}'s mesh serving == meshless")
+            check(r["topk100"]["eq_meshless"]
+                  and r["topk100"]["shape"] == [64, 100]
+                  and r["topk100"]["capacity"] > 64,
+                  f"mesh: rank {r['rank']}'s k = 100 query, wide route")
+            check(r["launches"]["dpmeans_assign"] > 0
+                  and r["launches"]["topk_stream"] > 0
+                  and r["dp_assign_launches"] == r["proposes"] > 0,
+                  f"mesh: rank {r['rank']} launched both kernels "
+                  f"({r['launches']}, DP-means {r['dp_assign_launches']} "
+                  f"for {r['proposes']} proposes)")
+        g = ranks[0]["psum"]["g_all"]
+        exact = g.sum(0)
+        bound = 4 * (float(abs(g).max()) / 127) + 1e-6
+        for r in ranks:
+            card, host = r["psum"]["cuda"], r["psum"]["cpu"]
+            check(_host_equal(list(card), list(host))
+                  and _host_equal(card[0], ranks[0]["psum"]["cuda"][0]),
+                  f"mesh: rank {r['rank']}'s compressed psum, card == host "
+                  "and every rank alike")
+            check(float(abs(card[0] - exact).max()) <= bound,
+                  "mesh: compressed psum within the reference's bound")
+        el = [r["elastic"] for r in ranks]
+        check([e["in_new_mesh"] for e in el] == [True, True, False, False]
+              and all(e["plan"] == {"data": 1, "model": 2} for e in el)
+              and all(e["equal"] and e["step"] == 3
+                      and e["local_shape"] == [64, 16] for e in el[:2]),
+              f"mesh: elastic restore (2, 2) -> (1, 2): {el}")
+        self.path_launches["mesh"] = {
+            k: sum(r["launches"][k] for r in ranks)
+            for k in ("dpmeans_assign", "topk_stream")}
+        emit({"phase": "mesh", "ranks": MESH_RANKS,
+              "backend": ranks[0]["backend"],
+              "collectives_on_card_tensors": ranks[0]["collectives"],
+              "n": {"dp_means": MESH_DP_N, "ofl": MESH_OFL_N,
+                    "bp_means": MESH_BP_N, "invariants": MESH_INV_N},
+              "K": {k: int(v["pool"]["count"]) for k, v in want.items()},
+              "one_process_seconds": one_s,
+              "ranks_wall_s": ranks_s,
+              "per_rank": [{
+                  "rank": r["rank"], "seconds": r["seconds"],
+                  "dp_propose_ms": r["propose_ms"],
+                  "dp_proposes": r["proposes"],
+                  "dp_gather_ms": r["gather_ms"],
+                  "dp_gathers": r["gathers"],
+                  "dp_assign_launches": r["dp_assign_launches"],
+                  "launches": r["launches"], "serve": r["serve"],
+                  "marks_s": r["marks_s"],
+                  "topk100": r["topk100"]} for r in ranks],
+              "one_process_serve": {k: one_serve[k] for k in (
+                  "seconds", "request_p50_ms", "request_p99_ms")},
+              "invariants": ranks[0]["invariants"],
+              "elastic": el, "launches": self.path_launches["mesh"],
+              "card": self.card})
+
     def kernel_rows(self) -> list[dict]:
         """One row per kernel: launches on its main path, largest error
         against its plain version, and its times at the shape its main
@@ -6201,6 +6400,285 @@ def _leaves(tree):
         return [leaf for t in tree for leaf in _leaves(t)]
     return []
 
+
+
+# ------------------------------------------------------------------- mesh
+def _host(tree):
+    """A result tree on the host: NamedTuples as dicts of numpy arrays
+    (`OCCStats.cap` left out, as `_same` leaves it), other values kept."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == (
+            "proposed", "accepted", "cap"):
+        return {"proposed": _host(tree.proposed),
+                "accepted": _host(tree.accepted)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {f: _host(getattr(tree, f)) for f in tree._fields}
+    if isinstance(tree, (tuple, list)):
+        return [_host(t) for t in tree]
+    return tree
+
+
+def _host_equal(a, b) -> bool:
+    """Two `_host` trees are equal, arrays bit for bit."""
+    import numpy as np
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(_host_equal(a[k], b[k]) for k in a))
+    if isinstance(a, list):
+        return (isinstance(b, list) and len(a) == len(b)
+                and all(_host_equal(u, v) for u, v in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape
+                and np.array_equal(a.reshape(-1).view(np.uint8),
+                                   b.reshape(-1).view(np.uint8)))
+    return a == b
+
+
+def _mesh_sync(dev_type: str) -> None:
+    import torch
+    if dev_type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mesh_paths(mesh, dev_type: str, seed: int, dp_hooks=None):
+    """The paper's three algorithms at the mesh phase's sizes, on `mesh`
+    (None: one process): DP-means (lambda 4, K_max 512, Pb 2048, two
+    passes) over MESH_DP_N points, OFL over the first MESH_OFL_N, BP-means
+    over MESH_BP_N feature points.  `dp_hooks` (start, stop) bracket the
+    DP-means pass.  Returns (results, seconds of each, the data)."""
+    from repro_torch.core import occ_bp_means, occ_dp_means, occ_ofl
+    from repro_torch.data import (
+        bp_stick_breaking_data, dp_stick_breaking_data,
+    )
+    x = dp_stick_breaking_data(MESH_DP_N, dim=16, seed=seed)[0]
+    xb = bp_stick_breaking_data(MESH_BP_N, seed=seed)[0]
+    kw = dict(device=dev_type, mesh=mesh)
+    res, secs = {}, {}
+    runs = (
+        ("dp_means", lambda: occ_dp_means(x, 4.0, pb=2048, k_max=512,
+                                          max_iters=2, **kw)),
+        ("ofl", lambda: occ_ofl(x[:MESH_OFL_N], 4.0, 2048, key=(0, seed),
+                                k_max=MESH_OFL_K_MAX, **kw)),
+        ("bp_means", lambda: occ_bp_means(xb, 4.0, 2048, k_max=512,
+                                          max_iters=2, **kw)))
+    for name, run in runs:
+        if name == "dp_means" and dp_hooks:
+            dp_hooks[0]()
+        _mesh_sync(dev_type)
+        t0 = time.perf_counter()
+        res[name] = run()
+        _mesh_sync(dev_type)
+        secs[name] = time.perf_counter() - t0
+        if name == "dp_means" and dp_hooks:
+            dp_hooks[1]()
+    return res, secs, x
+
+
+def _mesh_serve(store, x, mesh) -> dict:
+    """MESH_REQUESTS requests each of a 64-row score and a 64-row top-k
+    (k 8), interleaved, through a `ClusterService` on `mesh` (None: one
+    process).  Returns the answers and the request p50 / p99."""
+    from repro_torch.serving import ClusterService
+    svc = ClusterService(store, mesh=mesh)
+    answers = []
+    t0 = time.perf_counter()
+    for i in range(MESH_REQUESTS):
+        q = x[(64 * i) % x.shape[0]:][:64]
+        for r in (svc.score(q), svc.topk(q, k=8)):
+            answers.append((r.version, r.labels, r.scores))
+    m = svc.metrics()
+    return {"answers": answers, "seconds": time.perf_counter() - t0,
+            "request_p50_ms": m["request_p50_ms"],
+            "request_p99_ms": m["request_p99_ms"]}
+
+
+def _mesh_invariants(x, mesh, dev_type: str) -> dict:
+    """On the mesh, over the first MESH_INV_N points: the adaptive cap ==
+    full cap, the log-depth scan == serial, a `partial_fit` stream == the
+    one-shot pass."""
+    from repro_torch.core import DPMeansTransaction, OCCEngine, occ_dp_means
+    xi = x[:MESH_INV_N]
+    kw = dict(device=dev_type, mesh=mesh)
+    out = {}
+    full = occ_dp_means(xi, 4.0, pb=2048, k_max=512, max_iters=2, **kw)
+    adap = occ_dp_means(xi, 4.0, pb=2048, k_max=512, max_iters=2,
+                        validate_cap="adaptive", **kw)
+    out["adaptive_eq_full"] = _same(adap, full)
+    ser = occ_dp_means(xi, 4.0, pb=2048, k_max=512, **kw)
+    logd = occ_dp_means(xi, 4.0, pb=2048, k_max=512, scan_mode="logdepth",
+                        **kw)
+    out["logdepth_eq_serial"] = _same(logd, ser)
+    one = OCCEngine(DPMeansTransaction(4.0, 512), 2048, **kw).run(xi)
+    eng = OCCEngine(DPMeansTransaction(4.0, 512), 2048, **kw)
+    cuts = (0, 1000, 1037, 3000, MESH_INV_N)
+    parts = [eng.partial_fit(xi[a:b]) for a, b in zip(cuts, cuts[1:])]
+    tail = eng.flush()
+    parts += [tail] if tail is not None else []
+    import torch
+    out["stream_eq_oneshot"] = (
+        _same(eng.pool, one.pool)
+        and torch.equal(torch.cat([p.assign for p in parts]), one.assign))
+    return out
+
+
+def _mesh_rank(rank: int, world: int, port: int, out_dir: str, seed: int,
+               go, dev_type: str = "cuda") -> None:
+    """One rank of the mesh phase: the three algorithms on a (world,)
+    "data" mesh with the propose and gather of the DP-means pass timed,
+    the invariants, mesh serving (and the k = 100 query), the compressed
+    psum on a (world,) "pod" mesh on the card's and the host's tensors,
+    and the elastic restore (2, 2) -> (1, 2).  Writes its results to
+    out_dir/<rank>.pkl.  It imports, then waits for `go` before it touches
+    the card (the parent's one-process runs take the card alone while the
+    ranks import).  A fault prints the rank's Python stack."""
+    import faulthandler
+    import pickle
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import DPMeansTransaction
+    from repro_torch.distributed import shardings
+    from repro_torch.distributed.elastic import (
+        build_mesh_from_plan, plan_shrunk_mesh,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import compat_mesh, init_ranks
+    from repro_torch.optim.compression import (
+        compressed_psum_with_feedback, ef_init,
+    )
+    from repro_torch.serving import ClusterService, SnapshotStore
+    faulthandler.enable()
+    if not go.wait(MESH_TIMEOUT_S):
+        raise RuntimeError("mesh: the parent never started the ranks")
+    t_go = time.perf_counter()
+    backend = init_ranks(rank, world, f"tcp://localhost:{port}", dev_type,
+                         timeout_s=MESH_TIMEOUT_S)
+    mesh = compat_mesh((world,), ("data",), dev_type)
+    out = {"rank": rank, "backend": backend}
+    marks = {"setup": time.perf_counter() - t_go}
+
+    # The DP-means pass's propose (CUDA events) and gather (host clock
+    # between synchronisations) on this rank.
+    events, gathers = [], []
+    propose0, gather0 = DPMeansTransaction.propose, shardings.gather_rows
+
+    def timed_propose(txn, pool, x_e, state_e):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        got = propose0(txn, pool, x_e, state_e)
+        b.record()
+        events.append((a, b))
+        return got
+
+    def timed_gather(tree, shard):
+        _mesh_sync(dev_type)
+        t0 = time.perf_counter()
+        got = gather0(tree, shard)
+        _mesh_sync(dev_type)
+        gathers.append(time.perf_counter() - t0)
+        return got
+
+    def start():
+        if dev_type == "cuda":
+            DPMeansTransaction.propose = timed_propose
+        shardings.gather_rows = timed_gather
+        ops.reset_launch_counts()
+
+    def stop():
+        out["dp_assign_launches"] = ops.ASSIGN_LAUNCHES
+        DPMeansTransaction.propose = propose0
+        shardings.gather_rows = gather0
+
+    # --- the main path: counts from 0 just before, read just after ------
+    ops.reset_launch_counts()
+    res, secs, x = _mesh_paths(mesh, dev_type, seed, (start, stop))
+    store = SnapshotStore(device=dev_type)
+    store.publish_pool(res["dp_means"].pool)
+    served = _mesh_serve(store, x, mesh)
+    ofl_store = SnapshotStore(device=dev_type)
+    ofl_store.publish_pool(res["ofl"].pool)
+    q100 = [ClusterService(ofl_store, mesh=mesh).topk(x[:64], k=100)]
+    out["launches"] = {"dpmeans_assign": ops.ASSIGN_LAUNCHES,
+                       "topk_stream": ops.TOPK_LAUNCHES}
+    # ---------------------------------------------------------------------
+    q100.append(ClusterService(ofl_store).topk(x[:64], k=100))
+    _mesh_sync(dev_type)
+    out["propose_ms"] = sum(a.elapsed_time(b) for a, b in events)
+    out["proposes"] = len(events)
+    out["gather_ms"] = 1e3 * sum(gathers)
+    out["gathers"] = len(gathers)
+    out["seconds"] = secs
+    out["results"] = {k: _host(v) for k, v in res.items()}
+    marks["paths_and_serving"] = time.perf_counter() - t_go
+    plain = _mesh_serve(store, x, None)
+    out["serve"] = {k: served[k] for k in ("seconds", "request_p50_ms",
+                                           "request_p99_ms")}
+    out["serve_eq_meshless"] = _host_equal(_host(served["answers"]),
+                                           _host(plain["answers"]))
+    out["topk100"] = {
+        "capacity": ofl_store.latest().capacity,
+        "shape": list(q100[0].labels.shape),
+        "eq_meshless": _host_equal(
+            _host([q100[0].labels, q100[0].scores, q100[0].version]),
+            _host([q100[1].labels, q100[1].scores, q100[1].version]))}
+    marks["meshless_serving"] = time.perf_counter() - t_go
+    out["invariants"] = _mesh_invariants(x, mesh, dev_type)
+    marks["invariants"] = time.perf_counter() - t_go
+
+    # The compressed psum over a (world,) "pod" mesh: on the card's
+    # tensors, and on the host's over the same ranks.
+    g_all = np.random.default_rng(seed + 1).normal(
+        size=(world, 4096)).astype(np.float32)
+    g_all[2 % world, 5] = 7.5
+    psum = {}
+    for kind in (dev_type, "cpu"):
+        pod = compat_mesh((world,), ("pod",), kind)
+        grads = {"w": torch.from_numpy(g_all[rank].copy()).to(kind)}
+        with shardings.shard_ctx(pod):
+            got, ef = compressed_psum_with_feedback(grads, ef_init(grads),
+                                                    "pod")
+        psum[kind] = (got["w"].cpu().numpy(), ef.residual["w"].cpu().numpy())
+    out["psum"] = {"g_all": g_all, **psum}
+    marks["psum"] = time.perf_counter() - t_go
+
+    # The elastic restore: a checkpoint of a (2, 2) mesh restored onto the
+    # (1, 2) mesh that two failures leave.
+    mesh22 = compat_mesh((2, 2), ("data", "model"), dev_type)
+    w = torch.arange(64 * 32, dtype=torch.float32, device=dev_type
+                     ).reshape(64, 32)
+    sh = shardings.Sharding(mesh22, ("data", "model"))
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpt"))
+    mgr.save(3, {"w": distribute_tensor(w, mesh22, shardings.placements(sh))})
+    plan = plan_shrunk_mesh(mesh22, n_failed=2)
+    new = build_mesh_from_plan(plan, device_type=dev_type)
+    out["elastic"] = {"plan": plan.new_shape, "in_new_mesh": new is not None}
+    if new is not None:
+        step, back = mgr.restore(
+            {"w": w}, shardings={"w": shardings.Sharding(new, ("data",
+                                                               "model"))},
+            device=dev_type)
+        out["elastic"].update(
+            step=step,
+            equal=bool(torch.equal(shardings.full_tensor(back["w"]), w)),
+            local_shape=list(back["w"].to_local().shape))
+    marks["elastic"] = time.perf_counter() - t_go
+    out["marks_s"] = marks
+    out["collectives"] = [
+        "all_gather (list form: the engine's and serving's gathers)",
+        "all_reduce max and sum (the compressed psum)",
+        "scatter (distribute_tensor)",
+        "all_gather (list form: shardings.full_tensor of a DTensor)",
+        "barrier"]
+    with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
 
 if __name__ == "__main__":
     try:

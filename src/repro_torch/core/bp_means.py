@@ -227,13 +227,17 @@ def occ_bp_means(
     bootstrap: bool = False,
     validate_cap: int | None | str = None,
     device: str | torch.device = "cuda",
+    mesh=None,
+    data_axis: str = "data",
 ) -> BPMeansResult:
     """OCC BP-means (Alg. 6): `BPMeansTransaction` under `OCCEngine`, with
     a refine after every pass.  `init_mean` seeds f₁ from the first Pb
     block's mean, so batch and streaming runs agree; `bootstrap` serially
-    pre-processes the first pb/16 points."""
+    pre-processes the first pb/16 points; `mesh` / `data_axis` as in
+    `occ_dp_means`."""
     txn = BPMeansTransaction(lam, k_max, init_mean)
-    eng = OCCEngine(txn, pb, validate_cap=validate_cap, device=device)
+    eng = OCCEngine(txn, pb, validate_cap=validate_cap, device=device,
+                    mesh=mesh, data_axis=data_axis)
     x = eng._x(x)
     n = x.shape[0]
     nb = min(n, max(1, pb // 16)) if bootstrap else 0

@@ -186,16 +186,21 @@ def occ_dp_means(
     validate_cap: int | None | str = None,
     scan_mode: str = "serial",
     device: str | torch.device = "cuda",
+    mesh=None,
+    data_axis: str = "data",
 ) -> DPMeansResult:
     """OCC DP-means (Alg. 3): `DPMeansTransaction` under `OCCEngine`.
 
     max_iters: outer passes (1 = the paper's Fig-3 setting).  bootstrap:
     serially pre-process the first pb/16 points (paper §4.2).  validate_cap
-    / scan_mode: see OCCEngine (bit-identical results).
+    / scan_mode: see OCCEngine (bit-identical results).  mesh / data_axis:
+    every rank of the mesh calls this alike; each epoch is proposed split
+    over `data_axis` and validated on every rank (OCCEngine).
     """
     txn = DPMeansTransaction(lam, k_max)
     eng = OCCEngine(txn, pb, validate_cap=validate_cap, scan_mode=scan_mode,
-                    device=device)
+                    device=device,
+                    mesh=mesh, data_axis=data_axis)
     x = eng._x(x)
     n = x.shape[0]
     nb = min(n, max(1, pb // 16)) if bootstrap else 0

@@ -33,7 +33,17 @@ from the host with the propose half supplied by a callable (the in-process
 `local_proposer`, or the worker processes of `launch/occ_cluster.py`),
 bit-identical to `run()` on the same data.
 
-Not ported yet (see ROADMAP.md): `mesh`.
+Mesh (`mesh=`, a `DeviceMesh` with a `data_axis`): every rank of the mesh
+runs the same pass.  Each epoch's pb points are split over the data axis
+(`shardings.occ_epoch_sharding`): the rank proposes on its contiguous block
+of rows, in the axis group's rank order, and one all-gather gives every
+rank the whole epoch's proposals; then every rank runs the same validator
+and writeback, so the pool stays replicated (the master re-executed on
+every rank) and the pass equals the one-process pass bit for bit.  Where
+the axis does not divide the width (the width-1 bootstrap epochs), every
+rank proposes every row.  Per-point state (OFL's uniforms) is sliced with
+its rows.  The adaptive cap's retry reads the replicated stats, so every
+rank decides it alike and all take the same collectives.
 """
 from __future__ import annotations
 
@@ -158,10 +168,21 @@ def _finish_epoch(txn, pool, send, payload, aux, safe, valid_e, validate_cap,
     return pool, (assign_e, send, n_sent, n_acc, effective_cap(validate_cap, b))
 
 
-def _epoch_body(txn, pool, x_e, valid_e, state_e, validate_cap, scan_mode):
+def _epoch_body(txn, pool, x_e, valid_e, state_e, validate_cap, scan_mode,
+                shard=None):
     """One bulk-synchronous OCC epoch (any width, incl. the width-1 epochs
-    of the serial bootstrap prefix)."""
-    send, payload, aux, safe = txn.propose(pool, x_e, state_e)
+    of the serial bootstrap prefix).  With `shard` (a mesh's
+    `shardings.AxisShard` of the data axis) this rank proposes on its block
+    of the rows and every rank's proposals are gathered before the
+    (replicated) finish."""
+    if shard is None:
+        send, payload, aux, safe = txn.propose(pool, x_e, state_e)
+    else:
+        from repro_torch.distributed.shardings import gather_rows
+        lo, hi = shard.rows(x_e.shape[0])
+        send, payload, aux, safe = gather_rows(
+            txn.propose(pool, x_e[lo:hi],
+                        tree_map(lambda s: s[lo:hi], state_e)), shard)
     return _finish_epoch(txn, pool, send, payload, aux, safe, valid_e,
                          validate_cap, scan_mode)
 
@@ -171,13 +192,20 @@ def _cat(parts):
 
 
 def _engine_pass(txn, pool, x, state, *, pb, cap_warm, cap_rest, n_warm,
-                 n_bootstrap, scan_mode="serial"):
+                 n_bootstrap, scan_mode="serial", mesh=None, data_axis="data"):
     """The whole pass: bootstrap prefix + T epochs.  The main epochs run in
     up to two segments: the first `n_warm` at `cap_warm` (the burn-in
-    width), the rest at `cap_rest`.  Returns (result, epochs run)."""
+    width), the rest at `cap_rest`.  With a mesh the main epochs' rows are
+    split over `data_axis` (`_epoch_body`).  Returns (result, epochs run)."""
     n = x.shape[0]
     nb = n_bootstrap
     dev = x.device
+    shard = None
+    if mesh is not None:
+        from repro_torch.distributed.shardings import (
+            axis_shard, occ_epoch_sharding,
+        )
+        shard = axis_shard(occ_epoch_sharding(mesh, data_axis, pb, 2), 1)
 
     # Serial bootstrap prefix (paper §4.2): width-1 epochs are exactly the
     # serial algorithm.
@@ -210,7 +238,7 @@ def _engine_pass(txn, pool, x, state, *, pb, cap_warm, cap_rest, n_warm,
         cap = cap_warm if e < t_warm else cap_rest
         pool, (a, s, ns, na, c) = _epoch_body(
             txn, pool, xs[e], valid[e], tree_map(lambda t: t[e], ss), cap,
-            scan_mode)
+            scan_mode, shard)
         am.append(a)
         sm.append(s)
         sent.append(ns)
@@ -250,6 +278,10 @@ class OCCEngine:
         nothing: no clock reads and no host reads beyond the caller's own.
       device: where the pass runs — "cuda" (default) or "cpu".  Inputs are
         moved there; without a card, "cuda" raises.
+      mesh / data_axis: optional `DeviceMesh` (of the mesh's device type,
+        which must be `device`'s); every rank calls the engine alike, each
+        epoch's points are split over `data_axis` and the validation runs
+        replicated on every rank.
     """
 
     def __init__(self, transaction: OCCTransaction, pb: int,
@@ -257,12 +289,18 @@ class OCCEngine:
                  scan_mode: str = "serial",
                  publish: Callable[..., Any] | None = None,
                  obs: Any = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: Any = None,
+                 data_axis: str = "data"):
         if isinstance(validate_cap, str) and validate_cap != "adaptive":
             raise ValueError(f"unknown validate_cap {validate_cap!r}")
         if scan_mode not in ("serial", "logdepth"):
             raise ValueError(f"unknown scan_mode {scan_mode!r}")
         self.device = resolve_device(device)
+        mesh_type = getattr(mesh, "device_type", None)
+        if mesh is not None and mesh_type != self.device.type:
+            raise ValueError(f"a {mesh_type} mesh for an engine on "
+                             f"{self.device.type}")
         self.txn = transaction
         self.obs = obs
         self.pb = int(pb)
@@ -270,7 +308,8 @@ class OCCEngine:
         self.validate_cap = None if self.adaptive else validate_cap
         self.scan_mode = scan_mode
         self.publish = publish
-        self.mesh = None            # multi-card meshes are not ported
+        self.mesh = mesh
+        self.data_axis = data_axis
         self.n_dispatches = 0       # passes run, retries included
         self.n_epochs_dispatched = 0  # epochs run, retries included
         # adaptive-cap observability
@@ -320,7 +359,8 @@ class OCCEngine:
         res, epochs = _engine_pass(
             self.txn, pool, x, state, pb=self.pb, cap_warm=cap_warm,
             cap_rest=cap_rest, n_warm=n_warm, n_bootstrap=n_bootstrap,
-            scan_mode=self.scan_mode)
+            scan_mode=self.scan_mode, mesh=self.mesh,
+            data_axis=self.data_axis)
         self.n_dispatches += 1
         self.n_epochs_dispatched += epochs
         return res
@@ -456,8 +496,9 @@ class OCCEngine:
         on_commit / on_outputs (a promoted master resumes the global
         numbering); offsets stay relative to this call's x.
 
-        The adaptive cap needs the whole-pass retry and is refused.  Each
-        epoch counts as one dispatch.
+        The adaptive cap needs the whole-pass retry and is refused, and so
+        is a mesh (its ranks run `run()`).  Each epoch counts as one
+        dispatch.
         """
         if self.adaptive:
             raise ValueError("run_from_proposals requires a fixed/None "

@@ -194,12 +194,16 @@ def occ_ofl(
     validate_cap: int | None | str = None,
     scan_mode: str = "serial",
     device: str | torch.device = "cuda",
+    mesh=None,
+    data_axis: str = "data",
 ) -> OFLResult:
     """OCC Online Facility Location (Alg. 4): `OFLTransaction` under
-    `OCCEngine`.  Single pass by construction."""
+    `OCCEngine`.  Single pass by construction; `mesh` / `data_axis` as in
+    `occ_dp_means`."""
     txn = OFLTransaction(lam, k_max, key)
     eng = OCCEngine(txn, pb, validate_cap=validate_cap, scan_mode=scan_mode,
-                    device=device)
+                    device=device,
+                    mesh=mesh, data_axis=data_axis)
     x = eng._x(x)
     res = eng.run(x)
     obj = txn.objective(x, res.assign, res.pool)

@@ -7,7 +7,8 @@ token pipeline.  The embeddings are mean-pooled final hidden states of the
 model (before its final norm), so curation runs inside the framework and
 not as an offline job.  The forward runs the language-model kernels and
 the clustering `dpmeans_assign` on the card, their plain versions on the
-CPU.  Multi-card meshes are not ported: `curate(mesh=...)` raises.
+CPU.  `curate(mesh=...)` runs the pass on a mesh's ranks (each epoch
+proposed split over the data axis), every rank getting the same report.
 """
 from __future__ import annotations
 
@@ -54,15 +55,13 @@ def curate(embeds, lam: float, pb: int, k_max: int = 512,
     Clusters with more than `max_per_cluster` members are down-weighted to
     that size (near-duplicate suppression); the default is the mean
     cluster size.  `device`: where the pass runs; by default the
-    embeddings' device (a numpy array: the card).
+    embeddings' device (a numpy array: the card).  `mesh`: a `DeviceMesh`
+    whose every rank calls this alike (`occ_dp_means(mesh=)`).
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-card meshes are not ported yet "
-                                  "(ROADMAP.md queue 1: multi-card)")
     if device is None:
         device = embeds.device if isinstance(embeds, torch.Tensor) else "cuda"
     res = occ_dp_means(embeds, lam, pb=pb, k_max=k_max, max_iters=2,
-                       device=device)
+                       device=device, mesh=mesh)
     z = res.z.cpu().numpy()
     n = z.shape[0]
     k = int(res.pool.count)

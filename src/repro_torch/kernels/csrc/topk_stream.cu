@@ -92,6 +92,34 @@
 //
 // k is a template parameter over the power-of-two buckets 1..64; the
 // output keeps the first k_out <= bucket columns.
+//
+// k > 64: the wide route (`topk_wide_f32`, `topk_mp_wide_f32`).  Register
+// lists stop at 64, so a larger k keeps its list in memory: one block of
+// 256 threads a (query row, split of the candidate range), the grid (rows,
+// S) with S from the shapes alone (`topk_stream.wide_n_split`).  A
+// candidate is the 64-bit key bits(d2) << 32 | id, whose integer order is
+// the (d2, id) order (d2 is +0, positive or finite; invalid and inf
+// distances are the key ~0, after every real one).  The block keeps an
+// ascending list of L keys (L the power of two at or above min(k, the
+// candidates), in shared memory up to 2,048 keys, else in global
+// scratch) and walks its range in rounds of 2,048 candidates: each thread
+// forms its candidates' distances (the same fmaf chains and `combine` as
+// every kernel here, so the same bits), those below the list's last key
+// are appended to a shared buffer, and a round that appended any sorts
+// the buffer (a block-wide bitonic sort over the next power of two) and
+// folds it in: min(list[m], buffer[L-1-m]) is bitonic and holds the L
+// smallest of both, so one bitonic merge makes it the new list.  With
+// S > 1 every block writes its list to scratch and takes its row's ticket;
+// the last folds the other S - 1 lists the same way and writes the row,
+// (inf, -1) past the list or where a key is ~0.  The selected set is the
+// L smallest keys of the candidate set, which depends on neither S nor the
+// order of the rounds, so the route equals the plain version's
+// lexicographic selection exactly, ids included.  Multi-probe splits a
+// row's union ranks (split s takes ranks s, s + S, ...) and walks only a
+// member rank's shard, forming a distance for its valid rows.  A simple
+// route: each block reads
+// every candidate row of its range for its one query row, so the flat
+// route reads the active centers once a query row (no reuse across rows).
 
 #include "assign_tile.cuh"
 
@@ -780,6 +808,255 @@ int launch_mp(const float* x, const float* fine, const int* fine_ids,
   return (int)cudaGetLastError();
 }
 
+// ----------------------------------------------- k > 64: the wide route
+namespace wide {
+
+using u64 = unsigned long long;
+constexpr u64 NONE = ~0ull;       // an invalid or exhausted slot
+constexpr int NTW = 256;          // threads per block
+constexpr int CHUNK = 2048;       // candidates a round (8 a thread)
+constexpr int LIST_SMEM = 2048;   // lists up to this length live in smem
+
+__device__ __forceinline__ u64 key_of(float d2, int id) {
+  if (!(d2 < CUDART_INF_F)) return NONE;
+  return ((u64)__float_as_uint(__fadd_rn(d2, 0.f)) << 32) | (unsigned)id;
+}
+
+// Compare-exchange of the pairs (i, i + stride) for one bitonic stage over
+// a[0, m): ascending where (i & size) == 0 (size = m: all ascending).
+__device__ __forceinline__ void stage(u64* a, int m, int size, int stride) {
+  for (int t = threadIdx.x; t < (m >> 1); t += NTW) {
+    const int i = 2 * t - (t & (stride - 1));
+    const int j = i + stride;
+    const u64 ai = a[i], aj = a[j];
+    if ((ai > aj) == ((i & size) == 0)) {
+      a[i] = aj;
+      a[j] = ai;
+    }
+  }
+  __syncthreads();
+}
+
+// Block-wide bitonic sort of a[0, m), m a power of two, ascending.
+__device__ __forceinline__ void sort_keys(u64* a, int m) {
+  for (int size = 2; size <= m; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1)
+      stage(a, m, size, stride);
+}
+
+// A bitonic a[0, m) made ascending.
+__device__ __forceinline__ void merge_bitonic(u64* a, int m) {
+  for (int stride = m >> 1; stride > 0; stride >>= 1) stage(a, m, m, stride);
+}
+
+// Fold the ascending keys b[0, nb) (past them: NONE) into the ascending
+// list a[0, kk): the kk smallest of both, ascending.  `other`: b is
+// another block's list in global memory, read past L1.
+__device__ __forceinline__ void fold(u64* a, int kk, const u64* b,
+                                     int nb, bool other) {
+  for (int t = threadIdx.x; t < kk; t += NTW) {
+    const int j = kk - 1 - t;
+    if (j < nb) {
+      const u64 v = other ? __ldcg(b + j) : b[j];
+      if (v < a[t]) a[t] = v;
+    }
+  }
+  __syncthreads();
+  merge_bitonic(a, kk);
+}
+
+constexpr int PER = CHUNK / NTW;   // candidates a thread a round
+
+// One round: this thread's PER candidate keys (NONE where it has none)
+// below the list's last key are appended to the shared buffer, which is
+// sorted and folded into the list if any thread appended.  Every thread
+// of the block calls this.  nb holds two counters, this round's and the
+// next's: the next one is zeroed here, before this round's barrier, so a
+// thread that runs ahead into the next round (no barrier follows a round
+// that appended nothing) counts from 0, and one still reading this
+// round's counter is not cut short.
+__device__ __forceinline__ void offer_round(u64* list, u64* buf, int* nb,
+                                            int kk, int round,
+                                            const u64 (&keys)[PER]) {
+  const int tid = threadIdx.x;
+  if (tid == 0) nb[(round + 1) & 1] = 0;
+  const u64 thr = list[kk - 1];
+  int* nb_at = &nb[round & 1];
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    if (keys[i] < thr) buf[atomicAdd(nb_at, 1)] = keys[i];
+  __syncthreads();
+  const int n = *nb_at;
+  if (n > 0) {
+    int m = 1;
+    while (m < n) m <<= 1;
+    for (int t = n + tid; t < m; t += NTW) buf[t] = NONE;
+    __syncthreads();
+    sort_keys(buf, m);
+    fold(list, kk, buf, m, false);
+  }
+}
+
+// The distance key of query row xr (||xr||^2 = x2) to the center row cr.
+__device__ __forceinline__ u64 pair_key(const float* __restrict__ xr,
+                                        float x2,
+                                        const float* __restrict__ cr, int d,
+                                        int id) {
+  float c2 = 0.f, dot = 0.f;
+  for (int j = 0; j < d; ++j) {
+    const float cv = __ldg(cr + j);
+    c2 = fmaf(cv, cv, c2);
+    dot = fmaf(__ldg(xr + j), cv, dot);
+  }
+  return key_of(combine(x2, c2, dot), id);
+}
+
+// The start of a block (row blockIdx.x, split blockIdx.y): ||x_row||^2 and
+// the two counters into shared memory, the list (shared memory up to
+// LIST_SMEM keys, else this block's part of the scratch) filled with NONE.
+__device__ __forceinline__ u64* wide_begin(u64* wsm, const float* xr, int d,
+                                           int kk, u64* part, int* nb,
+                                           float* x2) {
+  const int n_split = gridDim.y;
+  u64* list = kk <= LIST_SMEM
+                  ? wsm + CHUNK
+                  : part + ((size_t)blockIdx.x * n_split + blockIdx.y) * kk;
+  if (threadIdx.x == 0) {
+    float a = 0.f;
+    for (int j = 0; j < d; ++j) a = fmaf(__ldg(xr + j), __ldg(xr + j), a);
+    *x2 = a;
+    nb[0] = nb[1] = 0;
+  }
+  for (int t = threadIdx.x; t < kk; t += NTW) list[t] = NONE;
+  __syncthreads();
+  return list;
+}
+
+// The end of a block: with S > 1 its list goes to the scratch and the
+// row's last block (a ticket a row, left 0) folds the other S - 1 lists;
+// that block, or the only one, writes the row: (inf, -1) past the list or
+// where a key is NONE.
+__device__ __forceinline__ void wide_end(u64* list, int kk, int k_out,
+                                         u64* part, int* tickets,
+                                         int* s_last,
+                                         float* __restrict__ d_out,
+                                         int* __restrict__ i_out) {
+  const int row = blockIdx.x;
+  const int n_split = gridDim.y;
+  const int tid = threadIdx.x;
+  if (n_split > 1) {
+    u64* own = part + ((size_t)row * n_split + blockIdx.y) * kk;
+    if (own != list)
+      for (int t = tid; t < kk; t += NTW) own[t] = list[t];
+    if (!last_of(tickets + row, n_split, s_last)) return;
+    for (int s = 0; s < n_split; ++s)
+      if (s != (int)blockIdx.y)
+        fold(list, kk, part + ((size_t)row * n_split + s) * kk, kk, true);
+  }
+  for (int m = tid; m < k_out; m += NTW) {
+    const u64 v = m < kk ? list[m] : NONE;
+    d_out[(size_t)row * k_out + m] =
+        v == NONE ? CUDART_INF_F : __uint_as_float((unsigned)(v >> 32));
+    i_out[(size_t)row * k_out + m] = v == NONE ? -1 : (int)(v & 0xffffffffu);
+  }
+}
+
+// Flat: split s of S takes a contiguous range of the row's active prefix,
+// masked.  part: rows * S * kk keys (used when S > 1 or kk > LIST_SMEM);
+// tickets: one int a row, 0, left 0.
+__global__ void __launch_bounds__(NTW, 1)
+topk_wide_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                 const uint8_t* __restrict__ mask,
+                 const int* __restrict__ count, float* __restrict__ d_out,
+                 int* __restrict__ i_out, u64* part, int* tickets, int k,
+                 int d, int kk, int k_out) {
+  extern __shared__ __align__(16) u64 wsm[];
+  __shared__ int s_nb[2];
+  __shared__ float s_x2;
+  __shared__ int s_last;
+  const float* xr = x + (size_t)blockIdx.x * d;
+  u64* list = wide_begin(wsm, xr, d, kk, part, s_nb, &s_x2);
+  const float x2 = s_x2;
+  const int total = assign_tile::active_count(count, k);
+  const int per = (total + (int)gridDim.y - 1) / (int)gridDim.y;
+  const int lo = blockIdx.y * per;
+  const int hi = min(total, lo + per);
+  int round = 0;
+  for (int base = lo; base < hi; base += CHUNK, ++round) {
+    u64 keys[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int t = base + threadIdx.x + NTW * i;
+      keys[i] = t < hi && mask[t] != 0
+                    ? pair_key(xr, x2, c + (size_t)t * d, d, t)
+                    : NONE;
+    }
+    offer_round(list, wsm, s_nb, kk, round, keys);
+  }
+  wide_end(list, kk, k_out, part, tickets, &s_last, d_out, i_out);
+}
+
+// Multi-probe: split s of S takes union ranks s, s + S, ... below u_count
+// and walks the shard of each rank the row is a member of (a non-member
+// rank or a -1 cell costs one read), forming a distance for its valid
+// rows.  stats: null, or two counters of which the first gets the
+// distances formed.
+__global__ void __launch_bounds__(NTW, 1)
+topk_mp_wide_kernel(const float* __restrict__ x, const float* __restrict__ fine,
+                    const int* __restrict__ fine_ids,
+                    const uint8_t* __restrict__ fine_mask,
+                    const int* __restrict__ cells,
+                    const uint8_t* __restrict__ member,
+                    const int* __restrict__ u_count, float* __restrict__ d_out,
+                    int* __restrict__ i_out, u64* part, int* tickets, int u,
+                    int s_cap, int d, int kk, int k_out,
+                    unsigned long long* stats) {
+  extern __shared__ __align__(16) u64 wsm[];
+  __shared__ int s_nb[2];
+  __shared__ float s_x2;
+  __shared__ int s_last;
+  const float* xr = x + (size_t)blockIdx.x * d;
+  const uint8_t* member_row = member + (size_t)blockIdx.x * u;
+  u64* list = wide_begin(wsm, xr, d, kk, part, s_nb, &s_x2);
+  const float x2 = s_x2;
+  int uc = *u_count;
+  uc = uc < u ? uc : u;
+  uc = uc > 0 ? uc : 0;
+  unsigned formed = 0;
+  int round = 0;
+  for (int j = blockIdx.y; j < uc; j += gridDim.y) {
+    const int cell = cells[j];
+    if (cell < 0 || member_row[j] == 0) continue;
+    const size_t shard = (size_t)cell * s_cap;
+    for (int r0 = 0; r0 < s_cap; r0 += CHUNK, ++round) {
+      u64 keys[PER];
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int sr = r0 + threadIdx.x + NTW * i;
+        const size_t at = shard + sr;
+        keys[i] = sr < s_cap && fine_mask[at] != 0
+                      ? pair_key(xr, x2, fine + at * d, d,
+                                 __ldg(fine_ids + at))
+                      : NONE;
+        formed += keys[i] != NONE;
+      }
+      offer_round(list, wsm, s_nb, kk, round, keys);
+    }
+  }
+  if (stats != nullptr) {
+    const unsigned sum = __reduce_add_sync(FULL, formed);
+    if (threadIdx.x % 32 == 0 && sum != 0)
+      atomicAdd(stats, (unsigned long long)sum);
+  }
+  wide_end(list, kk, k_out, part, tickets, &s_last, d_out, i_out);
+}
+
+inline int smem_bytes(int kk) {
+  return (int)sizeof(u64) * (CHUNK + (kk <= LIST_SMEM ? kk : 0));
+}
+
+}  // namespace wide
+
 }  // namespace
 
 // Both entry points return a CUDA error code (0 on success), -1 for an
@@ -836,4 +1113,40 @@ extern "C" int topk_multiprobe_f32(const float* x, const float* fine,
     case 64: return launch_mp<64>(x, fine, fine_ids, fine_mask, cells, member, u_count, d_out, i_out, g, stats, b, u, s_cap, d, k_out, n_split, st);
     default: return -1;
   }
+}
+
+// The wide route for k > 64 (see the header): one block a (row, split), the
+// grid (n, n_split); kk the list length (a power of two), k_out the output
+// columns.  part: n * n_split * kk 64-bit keys when n_split > 1 or kk >
+// 2,048, else unused; tickets: n ints, 0, left 0.  stats (multi-probe):
+// null, or two counters of which the first gets the distances formed.
+extern "C" int topk_wide_f32(const float* x, const float* centers,
+                             const uint8_t* mask, const int* count,
+                             float* d_out, int* i_out,
+                             unsigned long long* part, int* tickets, int n,
+                             int k, int d, int kk, int k_out, int n_split,
+                             void* stream) {
+  if (n <= 0) return 0;
+  const dim3 grid(n, n_split);
+  wide::topk_wide_kernel<<<grid, wide::NTW, wide::smem_bytes(kk),
+                           (cudaStream_t)stream>>>(
+      x, centers, mask, count, d_out, i_out, part, tickets, k, d, kk, k_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int topk_mp_wide_f32(const float* x, const float* fine,
+                                const int* fine_ids, const uint8_t* fine_mask,
+                                const int* cells, const uint8_t* member,
+                                const int* u_count, float* d_out, int* i_out,
+                                unsigned long long* part, int* tickets,
+                                unsigned long long* stats, int b, int u,
+                                int s_cap, int d, int kk, int k_out,
+                                int n_split, void* stream) {
+  if (b <= 0) return 0;
+  const dim3 grid(b, n_split);
+  wide::topk_mp_wide_kernel<<<grid, wide::NTW, wide::smem_bytes(kk),
+                              (cudaStream_t)stream>>>(
+      x, fine, fine_ids, fine_mask, cells, member, u_count, d_out, i_out,
+      part, tickets, u, s_cap, d, kk, k_out, stats);
+  return (int)cudaGetLastError();
 }

@@ -202,7 +202,7 @@ def serve_topk(x, centers, k: int, mask=None, count=None, n_valid=None,
     center loop there.  On the plain path a host-int `count` first slices
     the centers to the power-of-two active prefix (min 8), which changes no
     surviving distance.  k may exceed the capacity: the extra columns are
-    (inf, -1).  The kernel takes k <= 64 and raises a ValueError beyond.
+    (inf, -1).  The kernel takes any k >= 1: above 64 its wide route.
     """
     global TOPK_LAUNCHES
     kc = centers.shape[0]

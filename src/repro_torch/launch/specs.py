@@ -7,8 +7,8 @@
 `plan_cell` assembles the cell's function (an AdamW train step, `prefill`
 or `decode_step`) with its meta arguments into a `CellPlan`, whose `run()`
 executes it on them.  The JAX package's sharding specs
-(`input_spec_shardings`, the PartitionSpec trees) wait for the multi-card
-slice: a mesh of more than one card raises.
+(`input_spec_shardings`, the PartitionSpec trees) wait for the language
+model's half of the mesh: a mesh of more than one card raises.
 """
 from __future__ import annotations
 
@@ -33,8 +33,8 @@ def _sds(shape, dtype):
 
 def multi_card(what: str) -> NotImplementedError:
     """The error raised where a mesh of more than one card is asked for."""
-    return NotImplementedError(f"{what} waits for the multi-card slice "
-                               "(ROADMAP.md queue 1: multi-card)")
+    return NotImplementedError(f"{what} waits for the multi-card slice of "
+                               "the language model (ROADMAP.md queue 1)")
 
 
 def input_specs(arch: ArchConfig, shape: ShapeConfig) -> dict[str, Any]:

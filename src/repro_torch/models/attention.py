@@ -8,8 +8,8 @@ activations are on a CUDA device, the counterpart of the JAX package's
 `ops.on_tpu()` test; otherwise it runs the chunked attention, as the JAX
 package does off the TPU.  Decode attention stays plain torch, as it is
 plain jnp in the JAX package.  Decode mode "cp" (context-parallel) needs a
-mesh; without one it runs as "tp", as in the JAX package.  Meshes wait for
-the multi-card slice.  Cross-attention (`encode_kv` once over the encoder's
+mesh; without one it runs as "tp", as in the JAX package.  Sharded decode
+waits for the language model's half of the mesh.  Cross-attention (`encode_kv` once over the encoder's
 output, then `cross_attention`: no causal mask, no RoPE) is plain torch,
 f32 logits and softmax, as it is plain jnp in the JAX package.
 Training runs the chunked attention, as the JAX package does (its flash
@@ -173,8 +173,8 @@ def attention_decode(p, x, cfg, cache, pos, mode: str = "tp", mesh=None):
     """
     if mesh is not None:
         raise NotImplementedError(
-            "sharded decode waits for the multi-card slice (ROADMAP.md "
-            "queue 1: multi-card)")
+            "sharded decode waits for the language model's mesh, the "
+            "multi-card slice after the paper's path (ROADMAP.md queue 1)")
     if mode not in ("tp", "cp"):
         raise ValueError(f"unknown decode mode {mode!r}")
     b = x.shape[0]

@@ -5,13 +5,16 @@ int8 quantization cuts the bytes of a cross-pod gradient reduce 4x (vs
 f32); error feedback (residual accumulation) makes the quantization bias
 telescope to zero (Karimireddy et al., 2019).  One card has no cross-pod
 reduce: `apply_error_feedback` is the single-process form the JAX train
-step runs.  The collective form waits for the multi-card slice.
+step runs.  `compressed_psum_with_feedback` is the collective form: the
+body each rank runs, over the group of one axis of the current sharding
+context's mesh (the JAX package's shard_map body).
 
 Gradients are dicts keyed by the port's parameter names.  The JAX package
 quantizes each leaf of its tree with one scale, and a segment's leaf
 stacks every layer's tensor; `groups` (name -> group key) gives the
 tensors that share a scale, so the port quantizes exactly as the
-reference does.
+reference does.  The collective form takes one scale a tensor; the
+grouped scales come to it with the sharded train step, its first caller.
 """
 from __future__ import annotations
 
@@ -76,9 +79,33 @@ def apply_error_feedback(grads: dict[str, torch.Tensor], ef: EFState,
     return out, EFState(residual)
 
 
-def compressed_psum_with_feedback(grads, ef: EFState, axis: str):
-    """The int8-compressed cross-pod psum with error feedback needs a
-    collective over several cards."""
-    raise NotImplementedError(
-        "compressed_psum_with_feedback is a collective over several cards: "
-        "it waits for the multi-card slice (ROADMAP.md queue 1: multi-card)")
+@torch.no_grad()
+def compressed_psum_with_feedback(grads: dict[str, torch.Tensor], ef: EFState,
+                                  axis: str):
+    """int8-compressed sum over the ranks of mesh axis `axis`
+    (`shardings.current_ctx().mesh`) with error feedback; every rank calls
+    it with its own grads.  One scale a tensor, shared across the axis (an
+    all-reduce MAX of the tensors' amax), so the int8 codes, summed as
+    int32 by an all-reduce SUM, add exactly and every rank dequantizes
+    alike; each rank's quantization error goes into its residual.  The
+    reference's order of operations; two collectives in all, whatever the
+    number of tensors.  Returns (summed f32 grads, new EFState)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.shardings import current_ctx
+    group = current_ctx().mesh.get_group(axis)
+    corrected = {n: g.to(torch.float32) + ef.residual[n]
+                 for n, g in grads.items()}
+    amax = torch.stack([torch.max(torch.abs(c)) for c in corrected.values()])
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = {n: _scale(amax[i]) for i, n in enumerate(corrected)}
+    q = {n: _quantize(c, scale[n]) for n, c in corrected.items()}
+    residual = {n: c - q[n].to(torch.float32) * scale[n]
+                for n, c in corrected.items()}
+    flat = torch.cat([q[n].to(torch.int32).reshape(-1) for n in corrected])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    out, at = {}, 0
+    for n, c in corrected.items():
+        qsum = flat[at:at + c.numel()].reshape(c.shape)
+        at += c.numel()
+        out[n] = qsum.to(torch.float32) * scale[n]
+    return out, EFState(residual)

@@ -18,7 +18,7 @@ device every op takes its plain version, which it does see).
 
 One card has no collectives: the dry run reports zero collective bytes.
 Counting them (the counterpart of the JAX package's HLO parse) waits for the
-multi-card slice.
+language model's half of the mesh.
 
 Hardware constants: NVIDIA H100 SXM data sheet, dense — 989 TFLOP/s bf16 on
 the tensor cores, 67 TFLOP/s f32 outside them, 3.35 TB/s HBM3, 450 GB/s a

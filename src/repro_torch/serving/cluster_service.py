@@ -39,7 +39,16 @@ and run the multi-probe kernel over only those shards.  p >= n_cells is
 the flat step.  `recall_audit_every` > 0 runs the flat step on every Nth
 multi-probe dispatch and publishes recall@k as a gauge.
 
-Not ported yet: `mesh` serving (only `mesh=None` is accepted).
+Mesh (`mesh=`, a `DeviceMesh`): read-only data parallelism.  Every rank
+runs the same service over its own store, into which the same versions
+are published, so each holds the whole snapshot (replicated, as in
+`shardings.serve_snapshot_sharding`).  A bucket-padded microbatch's rows
+are split over the data axis (`serve_query_sharding`, with its
+divisibility fallback): each rank runs the query step, and so the kernel,
+on its block, and one all-gather gives every rank the whole response.
+Every rank must submit the same requests in the same order; so the
+admission queue, whose flushes follow each rank's own clock, and
+multi-probe top-k are refused with a mesh.
 """
 from __future__ import annotations
 
@@ -51,6 +60,9 @@ import numpy as np
 import torch
 
 from repro_torch._device import to_device
+from repro_torch.distributed.shardings import (
+    axis_shard, gather_rows, serve_query_sharding,
+)
 from repro_torch.kernels import ops as _kops
 from repro_torch.kernels.topk_stream import BLOCK_K, topk_tile_loads
 from repro_torch.obs import Obs
@@ -319,8 +331,9 @@ class ClusterService:
 
       store: the `SnapshotStore` the trainer publishes into.
       name: model tag stamped on responses (set by the router).
-      mesh / data_axis: accepted for the JAX package's signature; only
-        `mesh=None` is ported (any other value raises NotImplementedError).
+      mesh / data_axis: optional `DeviceMesh` of the store's device type:
+        replicated snapshots, query rows split over `data_axis`; every rank
+        submits the same requests.  Refused with `probes` or `coalesce`.
       obs: optional shared `repro_torch.obs.Obs` for counters, histograms
         and spans.
       shed_signal: optional zero-arg callable returning an external
@@ -342,12 +355,21 @@ class ClusterService:
                  obs: Obs | None = None,
                  shed_signal=None,
                  **overrides):
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
         if config is None:
             config = ServeConfig()
         if overrides:
             config = config.replace(**overrides)
+        if mesh is not None:
+            if config.probes is not None:
+                raise ValueError("multi-probe serving is not supported with "
+                                 "a mesh yet")
+            if config.coalesce:
+                raise ValueError("the admission queue flushes on each "
+                                 "rank's own clock: no coalescing on a mesh")
+            mesh_type = getattr(mesh, "device_type", None)
+            if mesh_type != store.device.type:
+                raise ValueError(f"a {mesh_type} mesh over a store on "
+                                 f"{store.device.type}")
         self.config = config
         self.store = store
         self.device = store.device
@@ -522,6 +544,20 @@ class ClusterService:
         return _topk_step(snap.centers, snap.mask, snap.count, xp, n, k=k,
                           backend=self.backend)
 
+    def _on_mesh(self, step, xp, n):
+        """step(rows, n_valid) -> (d2, idx) on this rank's block of the
+        microbatch's rows, every rank's blocks gathered in order; the whole
+        microbatch without a mesh or where the data axis does not divide
+        the bucket."""
+        shard = None
+        if self.mesh is not None:
+            shard = axis_shard(serve_query_sharding(
+                self.mesh, self.data_axis, xp.shape[0], xp.dim()), 0)
+        if shard is None:
+            return step(xp, n)
+        lo, hi = shard.rows(xp.shape[0])
+        return gather_rows(step(xp[lo:hi], max(0, min(n, hi) - lo)), shard)
+
     def _audit_recall(self, snap, xp, n, k, idx) -> None:
         """Flat top-k on the same microbatch; recall@k of the multi-probe
         answer against it, published as a gauge."""
@@ -558,10 +594,13 @@ class ClusterService:
                     h.fine_mask, xp, n, k=k, p=mp, u_cap=u_cap,
                     backend=self.backend)
             elif kind == "topk":
-                d2, idx = self._flat_topk(snap, xp, n, k)
+                d2, idx = self._on_mesh(
+                    lambda xq, nv: self._flat_topk(snap, xq, nv, k), xp, n)
             else:
-                d2, idx = _assign_step(snap.centers, snap.mask, snap.count,
-                                       xp, n, backend=self.backend)
+                d2, idx = self._on_mesh(
+                    lambda xq, nv: _assign_step(
+                        snap.centers, snap.mask, snap.count, xq, nv,
+                        backend=self.backend), xp, n)
             self._h_dispatch.observe(_now() - t0)
             self._c_dispatches.inc()
             if kind == "topk":

@@ -19,8 +19,9 @@ assign / score / topk requests by model name:
   and emits the `CenterDelta` wire stream.
 
 Differences from the JAX package: stores are made on the router's
-`device` ("cuda" unless the caller asks for the CPU), and only
-`mesh=None` is ported.
+`device` ("cuda" unless the caller asks for the CPU).  `mesh` is passed on
+to every tenant's service (`ClusterService(mesh=)`: every rank routes the
+same requests).
 """
 from __future__ import annotations
 
@@ -59,8 +60,6 @@ class ModelRouter:
                  obs: Obs | None = None,
                  device: str | torch.device = "cuda",
                  **overrides):
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
         if config is None:
             config = ServeConfig()
         if overrides:
@@ -73,6 +72,10 @@ class ModelRouter:
         self.mesh = mesh
         self.data_axis = data_axis
         self.device = resolve_device(device)
+        mesh_type = getattr(mesh, "device_type", None)
+        if mesh is not None and mesh_type != self.device.type:
+            raise ValueError(f"a {mesh_type} mesh for a router on "
+                             f"{self.device.type}")
         self._services: dict[str, ClusterService] = {}
         self._lock = threading.Lock()
         self._traces0 = _cs._QUERY_TRACES

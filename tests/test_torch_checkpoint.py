@@ -107,7 +107,9 @@ def test_restore_rejects_missing_leaf_and_shardings(tmp_path):
     with pytest.raises(FileNotFoundError):
         CheckpointManager(str(tmp_path / "empty")).restore(
             {"a": np.zeros(2)}, **CPU)
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    # shardings= takes (mesh, spec) Shardings (tests/test_torch_mesh.py
+    # restores onto a mesh), nothing else
+    with pytest.raises(TypeError, match="Sharding"):
         mgr.restore({"a": np.zeros(2)}, shardings=object(), **CPU)
 
 

@@ -146,7 +146,9 @@ def test_curation_downweights_duplicates():
 
 
 def test_curate_refuses_a_mesh():
-    with pytest.raises(NotImplementedError):
+    """Not a mesh of the pass's device type (tests/test_torch_mesh_occ.py
+    curates on a mesh)."""
+    with pytest.raises(ValueError, match="mesh"):
         curate(np.zeros((4, 2), np.float32), lam=1.0, pb=2, mesh=object(),
                device="cpu")
 

@@ -10,7 +10,9 @@ language model's `ServeEngine`, curates the embeddings of two token
 batches, takes one train step of that model (the optimizer and the train
 step) and one of `reduced(olmoe-1b-7b)` (the MoE block), and imports the train-while-serve and training launchers and every
 example, then dry-runs a narrow granite-3-2b decode cell on the meta device
-(`roofline`, `launch/specs`, `launch/dryrun`).
+(`roofline`, `launch/specs`, `launch/dryrun`), and runs the DP-means pass
+on a one-rank gloo mesh (`launch/mesh`, `distributed/shardings`,
+`distributed/elastic`).
 """
 import ast
 import os
@@ -129,6 +131,22 @@ with contextlib.redirect_stdout(io.StringIO()):   # its one-line summary
         d_ff=128, vocab=128))
 assert rec["status"] == "ok" and rec["n_chips"] == 1
 assert roofline.HW["peak_flops"] == 989e12
+import socket
+import torch.distributed as dist
+from repro_torch.distributed import elastic, shardings
+from repro_torch.launch.mesh import compat_mesh, init_ranks
+sock = socket.socket()
+sock.bind(("localhost", 0))
+port = sock.getsockname()[1]
+sock.close()
+init_ranks(0, 1, f"tcp://localhost:{port}", device_type="cpu", timeout_s=60)
+mesh = compat_mesh((1,), ("data",), device_type="cpu")
+occ_m = occ_dp_means(x, 4.0, 64, k_max=64, max_iters=2, device="cpu",
+                     mesh=mesh)
+assert torch.equal(occ_m.z, occ.z) and torch.equal(occ_m.pool.centers,
+                                                   occ.pool.centers)
+assert elastic.plan_shrunk_mesh(mesh, 0).new_shape == {"data": 1}
+dist.destroy_process_group()
 assert not _build._LIBS   # the CPU path never builds or loads a kernel
 print("OK", int(res.pool.count))
 """

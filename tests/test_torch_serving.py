@@ -517,9 +517,11 @@ def test_cap_trace_and_estimate_surface_in_metrics():
 
 def test_unported_and_unknown_options_raise():
     store = SnapshotStore(device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh must be a DeviceMesh of the store's device type
+    # (tests/test_torch_mesh_serving.py serves on one)
+    with pytest.raises(ValueError, match="mesh"):
         ClusterService(store, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh"):
         ModelRouter(mesh=object(), device="cpu")
     for backend in ("ref", "pallas", "emulate"):
         with pytest.raises(ValueError, match="backend"):

@@ -22,6 +22,7 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.topk_stream import (  # noqa: E402
     MAX_K, _bucket, topk_multiprobe_stream, topk_stream, topk_tile_loads,
+    wide_list,
 )
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -317,5 +318,68 @@ def test_k_buckets(k, bucket):
 
 @pytest.mark.parametrize("k", [0, MAX_K + 1])
 def test_k_outside_the_kernel_buckets_raises(k):
-    with pytest.raises(ValueError, match="1 <= k"):
-        _bucket(k)
+    """k < 1 raises; a k past the register-list buckets (64) is taken by
+    the wide route, whose list is the power of two at or above
+    min(k, candidates)."""
+    if k < 1:
+        with pytest.raises(ValueError, match="k >= 1"):
+            _bucket(k)
+        return
+    assert _bucket(k) == 128 > MAX_K
+    assert wide_list(k, 131072) == 128 and wide_list(k, 40) == 64
+
+
+# ------------------------------------------------ k > 64: the wide route
+
+WIDE = dict(block_n=16, block_k=64)
+
+
+@pytest.mark.parametrize("backend", ["ref", "pallas"])
+@pytest.mark.parametrize("k", [65, 100, 128])
+def test_wide_k_matches_jax(k, backend):
+    """The plain version past the register-list buckets: JAX's oracle and
+    its Pallas kernel (interpret mode) take any static k."""
+    x, c, mask = _case(20, 300, 16, 250, seed=k, holes=True)
+    port = _port_topk(x, c, k, mask=mask, count=250)
+    jx = jops.serve_topk(jnp.asarray(x), jnp.asarray(c), k,
+                         mask=jnp.asarray(mask),
+                         count=jnp.asarray(250, jnp.int32), backend=backend,
+                         **(WIDE if backend == "pallas" else {}))
+    _agree(port, (np.asarray(jx[0]), np.asarray(jx[1])))
+    ref = tref.topk_ref(torch.from_numpy(x), torch.from_numpy(c), k,
+                        torch.from_numpy(mask & (np.arange(300) < 250)))
+    np.testing.assert_array_equal(port[1], ref[1].numpy())
+    assert (np.diff(port[0], axis=1)[np.isfinite(port[0][:, 1:])] >= 0).all()
+
+
+@pytest.mark.parametrize("backend", ["ref", "pallas"])
+def test_wide_k_past_the_pool_is_exhausted(backend):
+    x, c, _ = _case(9, 64, 16, 64, seed=21)
+    port = _port_topk(x, c, 100, count=50)
+    jx = jops.serve_topk(jnp.asarray(x), jnp.asarray(c), 100,
+                         count=jnp.asarray(50, jnp.int32), backend=backend,
+                         **(WIDE if backend == "pallas" else {}))
+    _agree(port, (np.asarray(jx[0]), np.asarray(jx[1])))
+    assert port[1].shape == (9, 100)
+    assert (port[1][:, 50:] == -1).all() and np.isinf(port[0][:, 50:]).all()
+
+
+@pytest.mark.parametrize("backend", ["ref", "pallas"])
+def test_wide_k_multiprobe_matches_jax_and_flat(backend):
+    kc, d, count = 512, 16, 437
+    cn, m, h, th = _hier(kc, d, count, seed=22)
+    x = np.random.default_rng(23).normal(size=(12, d)).astype(np.float32)
+    cells = np.arange(h.n_cells, dtype=np.int32)
+    member = np.ones((12, h.n_cells), bool)
+    port = _port_mp(th, x, cells, member, 100, u_count=h.n_cells)
+    _agree(port, _jax_mp(h, x, cells, member, 100, backend,
+                         u_count=h.n_cells))
+    flat = _port_topk(x, cn, 100, mask=m, count=count)
+    np.testing.assert_array_equal(port[1], flat[1])
+    # a partial union: ids drawn only from the member cells' shards
+    member[:, 3:] = False
+    member[5] = False
+    part = _port_mp(th, x, cells, member, 100, u_count=h.n_cells)
+    _agree(part, _jax_mp(h, x, cells, member, 100, "ref",
+                         u_count=h.n_cells))
+    assert (part[1][5] == -1).all()

@@ -17,7 +17,11 @@ the folds in any order -- and hold it bit for bit to the plain versions
 (`ref.topk_ref`, `ref.topk_multiprobe_ref`) for S from 1 to every tile and
 k in {1, 3, 8, 64}, with exact ties, holes and random membership; the ids
 agree with the JAX package's emulations of the TPU kernels.  They also pin
-the split rules' values at the serving shapes, and hold the port's plain
+the split rules' values at the serving shapes, emulate the wide route
+for k > 64 (a list in memory a (row, split), rounds of candidates below
+its last key sorted and folded in by the kernel's own bitonic index
+arithmetic, the splits' lists folded by the last block) bit for bit
+against the plain version, and hold the port's plain
 f16 versions of the nearest-center and rmsnorm kernels to the JAX
 package's references.  The kernels themselves are held against the plain
 versions on the card by `chip_smoke.py`.
@@ -38,7 +42,8 @@ from repro.kernels.topk_stream import (  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.topk_stream import (  # noqa: E402
-    _bucket, block_k, mp_n_split, n_split,
+    _WIDE_CHUNK, _bucket, block_k, mp_n_split, n_split, wide_list,
+    wide_n_split,
 )
 
 H100_SMS = 132
@@ -427,3 +432,153 @@ def test_rmsnorm_plain_f16_matches_jax_ref(rng, shape):
     assert got.dtype == torch.float16
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=1e-2)
+
+
+# ----------------------------------------------- k > 64: the wide route
+# (rows, candidates) of the wide route's launches and their splits on an
+# H100: the serving microbatch over the retrieval index, one row alone, a
+# pool smaller than k, a 3000-wide list over 14 splits, and multi-probe's
+# 64 queries over a union of 256 shards of 320 rows.
+WIDE = {"serve_flat": ((64, 131072), 5), "one_row": ((1, 131072), 16),
+        "small_pool": ((37, 64), 1), "k3000": ((20, 131072), 14),
+        "mp_union": ((64, 256 * 320), 5)}
+NONE = np.uint64(2**64 - 1)
+
+
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_wide_split_values(name):
+    (rows, cands), want = WIDE[name]
+    assert wide_n_split(rows, cands, H100_SMS) == want
+    assert list(inspect.signature(wide_n_split).parameters) == [
+        "rows", "cands", "sms"]
+
+
+@pytest.mark.parametrize("k,cands,want", [(65, 131072, 128),
+                                          (100, 131072, 128),
+                                          (256, 131072, 256),
+                                          (3000, 131072, 4096),
+                                          (100, 64, 64), (100, 0, 1)])
+def test_wide_list_lengths(k, cands, want):
+    assert wide_list(k, cands) == want
+
+
+def _stage(a, size, stride):
+    """One stage of the kernel's bitonic network (`wide::stage`): pair t
+    compares i = 2t - (t & (stride - 1)) with i + stride, ascending where
+    (i & size) == 0."""
+    a = a.copy()
+    for t in range(a.shape[0] // 2):
+        i = 2 * t - (t & (stride - 1))
+        j = i + stride
+        if (a[i] > a[j]) == ((i & size) == 0):
+            a[i], a[j] = a[j], a[i]
+    return a
+
+
+def _sort(a):
+    m = a.shape[0]
+    size = 2
+    while size <= m:
+        stride = size // 2
+        while stride:
+            a = _stage(a, size, stride)
+            stride //= 2
+        size *= 2
+    return a
+
+
+def _merge(a):
+    stride = a.shape[0] // 2
+    while stride:
+        a = _stage(a, a.shape[0], stride)
+        stride //= 2
+    return a
+
+
+def _fold(lst, b):
+    """`wide::fold`: min(list[t], b[kk-1-t]) (NONE past b), then one
+    bitonic merge."""
+    kk = lst.shape[0]
+    rev = np.full(kk, NONE)
+    n = min(kk, b.shape[0])
+    rev[kk - n:] = b[:n][::-1]
+    return _merge(np.minimum(lst, rev))
+
+
+def wide_emulate(keys, k, s, chunk, rng):
+    """The wide route on a (rows, candidates) matrix of keys (NONE where a
+    candidate is invalid): per (row, split) a list of wide_list(k, m)
+    keys built in rounds of `chunk` candidates (those below the list's
+    last key appended in a random order, as the atomic appends land),
+    then the splits' lists folded in a random order."""
+    n, m = keys.shape
+    kk = wide_list(k, m)
+    per = -(-m // s)
+    d_out = np.full((n, k), np.inf, np.float32)
+    i_out = np.full((n, k), -1, np.int32)
+    for r in range(n):
+        lists = []
+        for sp in range(s):
+            lst = np.full(kk, NONE)
+            for base in range(sp * per, min(m, (sp + 1) * per), chunk):
+                cand = keys[r, base:min(base + chunk, (sp + 1) * per, m)]
+                buf = rng.permutation(cand[cand < lst[-1]])
+                if buf.size:
+                    mb = 1 << int(buf.size - 1).bit_length()
+                    pad = np.concatenate([buf, np.full(mb - buf.size, NONE)])
+                    lst = _fold(lst, _sort(pad))
+            lists.append(lst)
+        order = rng.permutation(s)
+        lst = lists[order[0]]
+        for o in order[1:]:
+            lst = _fold(lst, lists[o])
+        take = min(k, kk)
+        v = lst[:take]
+        ok = v != NONE
+        d_out[r, :take] = np.where(
+            ok, (v >> np.uint64(32)).astype(np.uint32).view(np.float32),
+            np.inf)
+        i_out[r, :take] = np.where(ok, (v & np.uint64(0xffffffff))
+                                   .astype(np.int64), -1)
+    return torch.from_numpy(d_out), torch.from_numpy(i_out)
+
+
+@pytest.mark.parametrize("k", [65, 100, 200])
+@pytest.mark.parametrize("name", ["plain", "holes", "ragged", "count0"])
+def test_wide_schedule_is_bitwise_the_plain_topk(name, k):
+    x, c, mask, count = _flat_case(name, n=6, kc=600)
+    m = mask & (np.arange(c.shape[0]) < count)
+    want = tref.topk_ref(torch.from_numpy(x), torch.from_numpy(c), k,
+                         torch.from_numpy(m))
+    d2 = _plain_d2(x, c, m)
+    keys = np.where(np.isfinite(d2), _keys(d2, np.arange(600)[None, :]),
+                    NONE)
+    rng = np.random.default_rng(k)
+    for s, chunk in ((1, 600), (1, 64), (3, 128), (7, 32)):
+        got = wide_emulate(keys, k, s, chunk, rng)
+        assert torch.equal(got[0], want[0]), (s, chunk)
+        assert torch.equal(got[1], want[1]), (s, chunk)
+
+
+def test_wide_schedule_exact_ties_go_to_the_lower_id():
+    x, c, mask, count = _flat_case("duplicates", n=5, kc=512)
+    d2 = _plain_d2(x, c, mask)
+    d2 = np.concatenate([d2[:, :256], d2[:, :256]], 1)
+    keys = _keys(d2, np.arange(512)[None, :])
+    got = wide_emulate(keys, 100, 4, 64, np.random.default_rng(0))
+    d, i = got[0].numpy(), got[1].numpy()
+    tie = d[:, 1:] == d[:, :-1]
+    assert tie.any() and (i[:, 1:][tie] > i[:, :-1][tie]).all()
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 64, 256])
+def test_wide_bitonic_network_sorts(m):
+    rng = np.random.default_rng(m)
+    a = rng.integers(0, 50, size=m).astype(np.uint64)
+    np.testing.assert_array_equal(_sort(a), np.sort(a))
+    half = np.sort(rng.integers(0, 99, size=m).astype(np.uint64))
+    other = np.sort(rng.integers(0, 99, size=m).astype(np.uint64))
+    folded = _fold(half, other)
+    np.testing.assert_array_equal(folded,
+                                  np.sort(np.concatenate([half, other]))[:m])
+    assert _WIDE_CHUNK == 2048
