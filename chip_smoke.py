@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one NVIDIA GPU and check it.
 
-  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,moe,serve_clusters,curation,examples,hybrid,xlstm,frontends,dryrun,mesh]
+  python3 chip_smoke.py [--phases device,build,kernels,lm_kernels,dp_paper,ofl,bp_means,fig3,retrieval,serve,invariants,cluster,ha,lm_serve,train,moe,serve_clusters,curation,examples,hybrid,xlstm,frontends,dryrun,mesh,lm_mesh]
 
 Run from the root of a checkout on a machine with a CUDA card.  It builds
 the hand-written kernels from `src/repro_torch/kernels/csrc/` with nvcc
@@ -50,11 +50,16 @@ every epoch with the nearest-center kernel; DP-means, OFL and BP-means
 on every rank equal the one-process run bit for bit, mesh serving equals
 the meshless service (a k = 100 top-k query, the top-k kernel's wide
 route, among its requests), the compressed psum runs on the card's
-tensors, and a checkpoint of a (2, 2) mesh restores onto (1, 2).
+tensors, and a checkpoint of a (2, 2) mesh restores onto (1, 2).  Then
+the language model's mesh: four ranks share the card on a (data 2,
+model 2) mesh; qwen3-4b served at full width and depth (the slot engine in
+decode modes "tp" and "cp", and a prefill through the flash kernel on each
+rank's heads) and granite-3-2b's tensor- and data-parallel train step at
+full width, each held to one process's run on the card.
 `--phases serve` or `examples` alone trains the
 retrieval index first; `--phases cluster`, `ha`, `serve_clusters`,
-`curation`, `hybrid`, `xlstm`, `frontends`, `dryrun` or `mesh` alone
-builds the kernels first.
+`curation`, `hybrid`, `xlstm`, `frontends`, `dryrun`, `mesh` or `lm_mesh`
+alone builds the kernels first.
 
 Every phase prints one JSON line.  The line before the last lists each
 kernel with its launches on the main path, its error against the plain
@@ -80,7 +85,7 @@ ALL_PHASES = ("device", "build", "kernels", "lm_kernels", "dp_paper", "ofl",
               "bp_means", "fig3", "retrieval", "serve", "invariants",
               "cluster", "ha", "lm_serve", "train", "moe", "serve_clusters",
               "curation", "examples", "hybrid", "xlstm", "frontends", "dryrun",
-              "mesh")
+              "mesh", "lm_mesh")
 KERNELS = ("dpmeans_assign", "topk_stream", "topk_multiprobe_stream",
            "flash_attention", "rmsnorm", "swiglu", "rmsnorm_bwd", "swiglu_bwd")
 SOURCES = ("dpmeans_assign", "topk_stream", "flash_attention", "rmsnorm",
@@ -159,9 +164,10 @@ BF16_LOGIT_TOL = 0.05
 # on 64 ticks (cut from 256 new tokens when the moe phase came in, from
 # 128 when the hybrid and xlstm phases came in, with the prompt from 64:
 # the engine prefills a prompt token by token, and from 64 when the mesh
-# phase came in: each decode call is dispatched from the host).
+# phase came in: each decode call is dispatched from the host; the prompt
+# from 32 to 16 when the lm_mesh phase came in, the ticks kept).
 SERVE_MAX_NEW = 32
-SERVE_PROMPT = 32
+SERVE_PROMPT = 16
 # The train-while-serve pipeline: points streamed per tenant (the paper's
 # Pb = 2048, 32 epochs each) and the QoS A/B tenant's stream.
 SC_N = 2**16
@@ -276,8 +282,9 @@ REC_F32_GRAD_TOL = {"hybrid": 1e-3, "xlstm": 1e-3}
 # (b) Full depth, bf16, flash attention: a 4 x TRAIN_SEQ prefill, then 4
 # requests of prompt REC_SERVE_PROMPT and REC_SERVE_MAX_NEW new tokens on
 # 4 slots (both cut from 64 when the frontends phase came in, the new
-# tokens to 16 when the mesh phase came in: the engine dispatches each
-# decode call from the host, 49-87 ms a call).
+# tokens to 16 when the mesh phase came in, the prompt to 16 when the
+# lm_mesh phase came in: the engine dispatches each decode call from the
+# host, 45-102 ms a call).
 # Last-token logits of two routes (kernels against plain versions;
 # decode_step after a prefill against one longer prefill) agree within
 # the larger of REC_BF16_LOGIT_TOL of max |logit| and the reference's own
@@ -315,7 +322,7 @@ REC_COMPARE = (2, 1024)
 # takes 8.8 s under the profiler, an eighth of them the same work; 1024
 # until the mesh phase came in).
 REC_PROFILE_XLSTM = 512
-REC_SERVE_PROMPT = 32
+REC_SERVE_PROMPT = 16
 REC_SERVE_MAX_NEW = 16
 # (c) Training at full width: zamba2 at REC_TRAIN_LAYERS layers (12 bytes
 # a parameter: 81 GB at 81 layers; 12 layers are two segments of six and
@@ -363,11 +370,12 @@ FE_F32_SEQ = 512
 # versions in f32 on an FE_COMPARE (B, positions) batch, held as
 # `_rec_agree` holds them (BF16_LOGIT_TOL, or REC_FLOOR_MUL times the bf16
 # run's own distance from f32); a ServeEngine run of 4 requests of prompt
-# FE_SERVE_PROMPT and FE_SERVE_MAX_NEW new tokens on 4 slots (cut from 32
-# when the mesh phase came in).
+# FE_SERVE_PROMPT and FE_SERVE_MAX_NEW new tokens on 4 slots (the new
+# tokens cut from 32 when the mesh phase came in, the prompt from 32 when
+# the lm_mesh phase came in).
 FE_TICKS = 32
 FE_COMPARE = (2, 1024)
-FE_SERVE_PROMPT = 32
+FE_SERVE_PROMPT = 16
 FE_SERVE_MAX_NEW = 16
 # (c) Training at full width: internvl2 at FE_TRAIN_LAYERS of its 24
 # layers, seamless at its full 12 + 12; bf16, remat "full", chunked
@@ -402,6 +410,50 @@ MESH_BP_N = 2**13
 MESH_INV_N = 4096
 MESH_REQUESTS = 256
 MESH_TIMEOUT_S = 300
+# The lm_mesh phase: the language model's mesh, LM_MESH_RANKS ranks sharing
+# the card on a (data 2, model 2) mesh.  qwen3-4b served at full width and
+# depth in bf16 (and at full width and LM_MESH_F32_LAYERS layers in f32, for
+# greedy tokens identical to one process): a ServeEngine of LM_MESH_SLOTS
+# slots runs LM_MESH_REQUESTS requests of LM_MESH_PROMPT prompt tokens and
+# LM_MESH_NEW new ones in decode modes "tp" and "cp" (the engine prefills
+# token by token: each request costs prompt + new decode calls; in f32,
+# LM_MESH_F32_SERVE = (requests, prompt, new)), and a prefill of
+# LM_MESH_PREFILL_B x LM_MESH_PREFILL_S.  The decode calls are host-bound
+# on the mesh (a call 336 ms in "tp" and 588 ms in "cp" against 62 ms in
+# one process, on an H100 80GB HBM3 at 700 W: 75 and 183 gloo collectives
+# a call, through the host, from four processes time-slicing the card), so
+# the engine runs were cut from 4 requests of prompt 16 (72 calls a mode,
+# the phase 140 s) to 2 of prompt 8 (24 calls, 88 s alone, 82.5 s in a
+# full run of 980 s) and then to these (16 calls).  granite-3-2b trained at
+# full width and LM_MESH_TRAIN_LAYERS of its 40 layers, bf16,
+# LM_MESH_TRAIN_BATCH x LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_STEPS steps, and one
+# error-feedback step on (pod 2, model 2); and in f32 at full width and
+# LM_MESH_F32_LAYERS layers, held to one process's loss and grad norm
+# within LM_MESH_F32_RTOL.  bf16 results are held to one process's within
+# LM_MESH_SPREAD_X times the spread between one process's kernels and its
+# plain versions on the same inputs.  The multiple is 16, not 4 (the first
+# run on an H100 80GB HBM3 at 700 W: the grad norm 9.4 x the spread): the
+# plain versions re-round only each block's norms and swiglu, while the
+# mesh re-rounds every tensor-parallel product (two bf16 partial sums, added
+# in f32) and each data rank's gradients; in f32 the mesh equals one process
+# to LM_MESH_F32_RTOL.
+LM_MESH_RANKS = 4
+LM_MESH_F32_LAYERS = 2
+LM_MESH_SLOTS = 4
+LM_MESH_REQUESTS = 2
+LM_MESH_PROMPT = 4
+LM_MESH_NEW = 8
+LM_MESH_F32_SERVE = (2, 4, 4)
+LM_MESH_CACHE = 64
+LM_MESH_PREFILL_B = 2
+LM_MESH_PREFILL_S = 512
+LM_MESH_TRAIN_LAYERS = 8
+LM_MESH_TRAIN_BATCH = 4
+LM_MESH_TRAIN_SEQ = 1024
+LM_MESH_TRAIN_STEPS = 3
+LM_MESH_SPREAD_X = 16.0
+LM_MESH_F32_RTOL = 1e-5
+LM_MESH_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
@@ -6101,6 +6153,64 @@ class Smoke:
               "elastic": el, "launches": self.path_launches["mesh"],
               "card": self.card})
 
+    def lm_mesh(self):
+        """The language model's mesh: LM_MESH_RANKS spawned ranks share the
+        card under gloo on a (data 2, model 2) mesh (`_lm_mesh_paths`):
+        qwen3-4b at full width, in f32 at LM_MESH_F32_LAYERS layers (the
+        slot engine's greedy tokens in modes "tp" and "cp" identical to one
+        process's) and in bf16 at full depth (the engine in both modes, a
+        prefill whose logits stay within LM_MESH_SPREAD_X times one
+        process's kernels-against-plain spread), and granite-3-2b's train
+        step at full width (loss and grad norm per step within the same
+        multiple of their spread), one error-feedback step on (pod 2,
+        model 2).  Every rank launches the flash, rmsnorm, swiglu and both
+        backward kernels on the main path, runs no plain backward, and gets
+        the same results.  The parent builds the kernels and runs the
+        one-process references (and their plain versions) alone first; a
+        rank that fails fails the phase."""
+        import multiprocessing
+        import pickle
+        import socket
+        import numpy as np
+        torch = self.torch
+        self._ensure_built()
+        ctx = multiprocessing.get_context("spawn")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        go = ctx.Event()
+        with tempfile.TemporaryDirectory() as out_dir:
+            procs = [ctx.Process(target=_lm_mesh_rank,
+                                 args=(r, LM_MESH_RANKS, port, out_dir,
+                                       self.seed, go), daemon=True)
+                     for r in range(LM_MESH_RANKS)]
+            for p in procs:
+                p.start()
+            one = _lm_mesh_paths(None, None, self.dev, self.seed, plain=True)
+            torch.cuda.empty_cache()
+            go.set()
+            t0 = time.perf_counter()
+            deadline = time.monotonic() + LM_MESH_TIMEOUT_S
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            codes = [p.exitcode for p in procs]
+            check(not hung and codes == [0] * LM_MESH_RANKS,
+                  f"lm_mesh: rank exit codes {codes}, still running {hung}")
+            ranks = []
+            for r in range(LM_MESH_RANKS):
+                with open(os.path.join(out_dir, f"{r}.pkl"), "rb") as f:
+                    ranks.append(pickle.load(f))
+        ranks_s = time.perf_counter() - t0
+        line = _lm_mesh_report(one, ranks, ranks_s, self.card)
+        self.path_launches["lm_mesh"] = line["launches"]
+        emit(line)
+        check(not line["failed"], f"lm_mesh: {line['failed']}")
+
     def kernel_rows(self) -> list[dict]:
         """One row per kernel: launches on its main path, largest error
         against its plain version, and its times at the shape its main
@@ -6675,6 +6785,412 @@ def _mesh_rank(rank: int, world: int, port: int, out_dir: str, seed: int,
         "scatter (distribute_tensor)",
         "all_gather (list form: shardings.full_tensor of a DTensor)",
         "barrier"]
+    with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+# --------------------------------------------------------------- lm_mesh
+def _lm_mesh_model(cfg, mesh, dev, seed: int, zero3: bool = True,
+                   backend: str = "auto"):
+    import torch
+    from repro_torch.distributed.shardings import shard_ctx
+    from repro_torch.models import build_model
+    with shard_ctx(mesh, zero3=zero3):
+        return build_model(cfg, device=dev, backend=backend, mesh=mesh).init(
+            torch.Generator(device=dev).manual_seed(seed))
+
+
+def _lm_mesh_engine(model, mode: str, seed: int, calls=None,
+                    sizes=(LM_MESH_REQUESTS, LM_MESH_PROMPT, LM_MESH_NEW)
+                    ) -> dict:
+    """`sizes` = (requests, prompt, new tokens) through a ServeEngine in
+    decode mode `mode`: greedy tokens, wall seconds, tick seconds, decode
+    calls and (with `calls`, the collective counter) collectives a decode
+    call."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import Request, ServeEngine
+    n, prompt, new = sizes
+    rng = np.random.default_rng(seed)
+    eng = ServeEngine(model, n_slots=LM_MESH_SLOTS, cache_len=LM_MESH_CACHE,
+                      decode_mode=mode)
+    reqs = [Request(uid=i, prompt=rng.integers(0, model.cfg.vocab, prompt),
+                    max_new=new) for i in range(n)]
+    before = dict(calls) if calls is not None else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    out = {"tokens": sorted((r.uid, list(r.out)) for r in done),
+           "seconds": time.perf_counter() - t0, "tick_s": eng.step_seconds,
+           "decode_calls": eng.n_decode_calls}
+    if calls is not None:
+        out["collectives"] = {k: (calls[k] - before.get(k, 0))
+                              / eng.n_decode_calls for k in calls}
+    return out
+
+
+def _lm_mesh_train(model, tcfg, pipe, steps: int, calls=None) -> dict:
+    """`steps` train steps: (loss, grad norm) a step, step seconds, peak
+    bytes, each leaf's gradient norm at the first step and (with `calls`)
+    collectives a step."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.training import make_train_step, train_state_init
+    from repro_torch.training import step as step_mod
+    state = train_state_init({n: p.detach() for n, p in
+                              model.named_parameters()}, tcfg)
+    step = make_train_step(model, tcfg)
+    leaf_norms = {}
+    update = step_mod.adamw_update
+
+    def recorded(params, grads, *a, **kw):
+        if not leaf_norms:
+            names = sorted(grads)
+            sq = torch.stack([torch.sum(torch.square(
+                grads[n].to(torch.float32))) for n in names])
+            mp = model.mp
+            if mp is not None:     # each block once, summed over the mesh
+                coord = mp.mesh.get_coordinate()
+                keep = torch.tensor([float(all(
+                    c == 0 for c, p in zip(coord, state.params[n].placements)
+                    if p.is_replicate())) for n in names], device=sq.device)
+                sq = sq * keep
+                for md in range(mp.mesh.ndim):
+                    dist.all_reduce(sq, group=mp.mesh.get_group(md))
+            leaf_norms.update(zip(names, torch.sqrt(sq).tolist()))
+        return update(params, grads, *a, **kw)
+    step_mod.adamw_update = recorded
+    torch.cuda.reset_peak_memory_stats()
+    mets, secs = [], []
+    before = None
+    for i in range(steps):
+        if i == 1 and calls is not None:    # after the recorded first step
+            before = dict(calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, pipe.batch_at(i))
+        mets.append([float(met["loss"]), float(met["grad_norm"])])
+        secs.append(time.perf_counter() - t0)
+    step_mod.adamw_update = update
+    out = {"metrics": mets, "step_s": secs, "leaf_norms": leaf_norms,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if before is not None:
+        out["collectives"] = {k: (calls[k] - before.get(k, 0)) / (steps - 1)
+                              for k in calls}
+    return out
+
+
+def _leaf_norm_diffs(one: dict, mesh: dict, top: int = 8) -> list:
+    """The leaves whose first-step gradient norms differ most (relative)
+    between one process and the mesh: (name, one's, the mesh's)."""
+    rel = sorted(one, key=lambda n: -abs(mesh[n] - one[n])
+                 / max(abs(one[n]), 1e-30))
+    return [(n, one[n], mesh[n]) for n in rel[:top]]
+
+
+def _lm_mesh_paths(mesh, pod, dev, seed: int, plain: bool = False,
+                   calls=None, marks=None) -> dict:
+    """The lm_mesh phase's workloads on `mesh` (data 2, model 2) and, for
+    the error-feedback step, `pod` (pod 2, model 2); both None: one
+    process.  `plain`: also one process's plain versions on the same
+    inputs (the prefill's logits, the train steps)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    base = get_arch("qwen3-4b").replace(attn_impl="flash")
+    res = {}
+
+    def mark(name):
+        if marks is not None:
+            torch.cuda.synchronize()
+            marks[name] = time.perf_counter()
+    # f32, full width, LM_MESH_F32_LAYERS layers: greedy tokens
+    m32 = _lm_mesh_model(base.replace(n_layers=LM_MESH_F32_LAYERS,
+                                      dtype="float32"), mesh, dev, seed + 700,
+                         zero3=False)
+    res["f32"] = {mode: _lm_mesh_engine(m32, mode, seed,
+                                        sizes=LM_MESH_F32_SERVE)["tokens"]
+                  for mode in ("tp", "cp")}
+    del m32
+    torch.cuda.empty_cache()
+    mark("f32_serve")
+    # bf16, full width and depth: the engine in both modes, a prefill
+    torch.cuda.reset_peak_memory_stats()
+    mq = _lm_mesh_model(base, mesh, dev, seed + 701, zero3=False)
+    res["serve"] = {mode: _lm_mesh_engine(mq, mode, seed, calls)
+                    for mode in ("tp", "cp")}
+    toks = np.random.default_rng(seed + 1).integers(
+        0, base.vocab, (LM_MESH_PREFILL_B, LM_MESH_PREFILL_S))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = mq.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    res["prefill"] = {"logits": logits.cpu().numpy(),
+                      "seconds": time.perf_counter() - t0}
+    del caches
+    if plain:
+        mq.backend = "plain"
+        res["prefill_plain_logits"] = mq.prefill({"tokens": toks})[0] \
+            .cpu().numpy()
+    res["serve_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del mq
+    torch.cuda.empty_cache()
+    mark("bf16_serve")
+    # granite-3-2b's train steps, then one error-feedback step
+    cfg = get_arch("granite-3-2b").replace(n_layers=LM_MESH_TRAIN_LAYERS)
+    pipe = TokenPipeline(cfg.vocab, LM_MESH_TRAIN_BATCH, LM_MESH_TRAIN_SEQ,
+                         seed=seed)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                       total_steps=LM_MESH_TRAIN_STEPS)
+    res["train_f32"] = _lm_mesh_train(
+        _lm_mesh_model(cfg.replace(n_layers=LM_MESH_F32_LAYERS,
+                                   dtype="float32"), mesh, dev, seed + 703),
+        tcfg, pipe, 2)
+    torch.cuda.empty_cache()
+    res["train"] = _lm_mesh_train(_lm_mesh_model(cfg, mesh, dev, seed + 702),
+                                  tcfg, pipe, LM_MESH_TRAIN_STEPS, calls)
+    torch.cuda.empty_cache()
+    if plain:
+        res["train_plain"] = _lm_mesh_train(
+            _lm_mesh_model(cfg, mesh, dev, seed + 702, backend="plain"),
+            tcfg, pipe, LM_MESH_TRAIN_STEPS)
+        torch.cuda.empty_cache()
+    mark("train")
+    res["ef"] = _lm_mesh_train(
+        _lm_mesh_model(cfg, pod, dev, seed + 702),
+        TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                    total_steps=LM_MESH_TRAIN_STEPS, compress_cross_pod=True),
+        pipe, 1)
+    torch.cuda.empty_cache()
+    mark("ef")
+    return res
+
+
+def _lm_mesh_report(one: dict, ranks: list, ranks_s: float,
+                    card: str) -> dict:
+    """The lm_mesh phase's line from one process's results (`one`) and
+    each rank's: its checks, times and counts, and under "failed" every
+    check that failed (the phase fails after printing it)."""
+    import numpy as np
+
+    def spread(a, b):
+        return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+    failed = []
+
+    def verify(cond, what):
+        if not cond:
+            failed.append(what)
+    r0 = ranks[0]["paths"]
+    verify(one["f32"]["tp"] == one["f32"]["cp"],
+           "lm_mesh: one process's f32 tokens, cp == tp")
+    logit_spread = spread(one["prefill"]["logits"],
+                          one["prefill_plain_logits"])
+    tm = np.asarray(one["train"]["metrics"])
+    tp_ = np.asarray(one["train_plain"]["metrics"])
+    train_spread = [spread(tm[:, i], tp_[:, i]) for i in range(2)]
+    checks = {"logit_spread": logit_spread,
+              "train_spread_loss_gnorm": train_spread}
+    for r in ranks:
+        got = r["paths"]
+        for mode in ("tp", "cp"):
+            verify(got["f32"][mode] == one["f32"]["tp"],
+                   f"lm_mesh: rank {r['rank']}'s f32 {mode} tokens == "
+                   "one process's")
+            verify(got["serve"][mode]["tokens"]
+                   == r0["serve"][mode]["tokens"],
+                   f"lm_mesh: rank {r['rank']}'s bf16 {mode} tokens == "
+                   "rank 0's")
+        verify(np.array_equal(got["prefill"]["logits"],
+                              r0["prefill"]["logits"])
+               and got["train"]["metrics"] == r0["train"]["metrics"]
+               and got["ef"]["metrics"] == r0["ef"]["metrics"],
+               f"lm_mesh: rank {r['rank']}'s results == rank 0's")
+        for k in ("flash_attention", "rmsnorm", "swiglu", "rmsnorm_bwd",
+                  "swiglu_bwd"):
+            verify(r["launches"][k] > 0,
+                   f"lm_mesh: rank {r['rank']} launched {k}: "
+                   f"{r['launches']}")
+        verify(not r["plain_backward"],
+               f"lm_mesh: rank {r['rank']} ran plain backward versions "
+               f"{r['plain_backward']}")
+        verify(r["swiglu_4864_err"] <= r["swiglu_4864_ulp"],
+               f"lm_mesh: rank {r['rank']}'s swiglu at (512, 4864) "
+               f"within one bf16 ulp: {r['swiglu_4864_err']}")
+    err = spread(r0["prefill"]["logits"], one["prefill"]["logits"])
+    checks["prefill_logit_err"] = err
+    verify(err <= LM_MESH_SPREAD_X * logit_spread,
+           f"lm_mesh: bf16 prefill logits {err} from one process's, "
+           f"over {LM_MESH_SPREAD_X} x the plain spread {logit_spread}")
+    mm = np.asarray(r0["train"]["metrics"])
+    ef1, efm = np.asarray(one["ef"]["metrics"]), \
+        np.asarray(r0["ef"]["metrics"])
+    checks["train_err_loss_gnorm"] = [spread(mm[:, i], tm[:, i])
+                                      for i in range(2)]
+    checks["ef_err_loss_gnorm"] = [spread(efm[:, i], ef1[:, i])
+                                   for i in range(2)]
+    for what in ("train_err_loss_gnorm", "ef_err_loss_gnorm"):
+        for i, name in enumerate(("loss", "grad_norm")):
+            verify(checks[what][i] <= LM_MESH_SPREAD_X * train_spread[i],
+                   f"lm_mesh: {what} {name} {checks[what][i]} over "
+                   f"{LM_MESH_SPREAD_X} x the plain spread "
+                   f"{train_spread[i]}")
+    f1 = np.asarray(one["train_f32"]["metrics"])
+    fm = np.asarray(r0["train_f32"]["metrics"])
+    checks["train_f32_rel_err_loss_gnorm"] = [
+        float(np.max(np.abs(fm[:, i] - f1[:, i]) / np.abs(f1[:, i])))
+        for i in range(2)]
+    verify(max(checks["train_f32_rel_err_loss_gnorm"]) <= LM_MESH_F32_RTOL,
+           f"lm_mesh: f32 loss and grad norm relative errors "
+           f"{checks['train_f32_rel_err_loss_gnorm']} over "
+           f"{LM_MESH_F32_RTOL}")
+    bf16_same = {mode: sum(a == b for a, b in zip(
+        r0["serve"][mode]["tokens"], one["serve"][mode]["tokens"]))
+        for mode in ("tp", "cp")}
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ("flash_attention", "rmsnorm", "swiglu",
+                          "rmsnorm_bwd", "swiglu_bwd")}
+
+    def serve_row(res):
+        return {mode: {
+            "seconds": res["serve"][mode]["seconds"],
+            "decode_calls": res["serve"][mode]["decode_calls"],
+            "ms_per_decode_call": 1e3 * res["serve"][mode]["seconds"]
+            / res["serve"][mode]["decode_calls"],
+            "tick_p50_ms": 1e3 * float(np.percentile(
+                res["serve"][mode]["tick_s"], 50)),
+            "tick_p99_ms": 1e3 * float(np.percentile(
+                res["serve"][mode]["tick_s"], 99)),
+            "collectives_per_decode_call":
+                res["serve"][mode].get("collectives")}
+            for mode in ("tp", "cp")}
+
+    def times(res):
+        return {"serve": serve_row(res),
+                "prefill_s": res["prefill"]["seconds"],
+                "train_step_s": res["train"]["step_s"],
+                "ef_step_s": res["ef"]["step_s"],
+                "train_collectives_per_step":
+                    res["train"].get("collectives"),
+                "serve_peak_gb": res["serve_peak_bytes"] / 1e9,
+                "train_peak_gb": res["train"]["peak_bytes"] / 1e9}
+    return {"phase": "lm_mesh", "ranks": LM_MESH_RANKS,
+            "mesh": {"serve_and_train": {"data": 2, "model": 2},
+                     "error_feedback": {"pod": 2, "model": 2}},
+            "backend": ranks[0]["backend"], "card": card,
+            "checks": checks, "bf16_tokens_same_as_one_process": bf16_same,
+            "f32_tokens": one["f32"]["tp"],
+            "one_process": times(one),
+            "per_rank": [{"rank": r["rank"], **times(r["paths"]),
+                          "launches": r["launches"],
+                          "marks_s": r["marks_s"]} for r in ranks],
+            "train_metrics": {"one_process": one["train"]["metrics"],
+                              "plain": one["train_plain"]["metrics"],
+                              "mesh": r0["train"]["metrics"],
+                              "ef_one_process": one["ef"]["metrics"],
+                              "ef_mesh": r0["ef"]["metrics"],
+                              "f32_one_process": one["train_f32"]["metrics"],
+                              "f32_mesh": r0["train_f32"]["metrics"]},
+            "collectives": ranks[0]["collectives"],
+            "grad_norms_step0_top": _leaf_norm_diffs(
+                one["train"]["leaf_norms"], r0["train"]["leaf_norms"]),
+            "ranks_wall_s": ranks_s, "launches": launches,
+            "failed": failed}
+
+
+def _count_collectives() -> dict:
+    """Count this process's collectives by name from here on (wrapping
+    `torch.distributed`'s functions, which the port calls through the
+    module): all_reduce by op, all_gather, barrier."""
+    import torch.distributed as dist
+    calls: dict = {}
+    for name in ("all_reduce", "all_gather", "barrier", "broadcast"):
+        fn = getattr(dist, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            key = _name
+            if _name == "all_reduce":
+                op = kw.get("op", a[1] if len(a) > 1 else dist.ReduceOp.SUM)
+                key = f"all_reduce_{str(op).split('.')[-1].lower()}"
+            calls[key] = calls.get(key, 0) + 1
+            return _fn(*a, **kw)
+        setattr(dist, name, counted)
+    return calls
+
+
+def _lm_mesh_rank(rank: int, world: int, port: int, out_dir: str, seed: int,
+                  go) -> None:
+    """One rank of the lm_mesh phase: `_lm_mesh_paths` on a (data 2,
+    model 2) mesh and a (pod 2, model 2) mesh of the `world` ranks sharing
+    the card, with its kernel launches counted from 0 just before and read
+    just after, its collectives counted, and any plain backward version
+    recorded; then a check of the swiglu kernel at qwen3-4b's per-rank
+    width (512, 4864).  Writes its results to out_dir/<rank>.pkl.  It
+    imports, then waits for `go` before it touches the card."""
+    import faulthandler
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import compat_mesh, init_ranks
+    faulthandler.enable()
+    if not go.wait(LM_MESH_TIMEOUT_S):
+        raise RuntimeError("lm_mesh: the parent never started the ranks")
+    t_go = time.perf_counter()
+    backend = init_ranks(rank, world, f"tcp://localhost:{port}", "cuda",
+                         timeout_s=LM_MESH_TIMEOUT_S)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = compat_mesh((2, 2), ("data", "model"))
+    pod = compat_mesh((2, 2), ("pod", "model"))
+    out = {"rank": rank, "backend": backend}
+    plain_bwd = []
+    saved = (ref.rmsnorm_bwd_ref, ref.swiglu_bwd_ref)
+
+    def guard(fn):
+        def counted(*a, **kw):
+            plain_bwd.append(fn.__name__)
+            return fn(*a, **kw)
+        return counted
+    ref.rmsnorm_bwd_ref, ref.swiglu_bwd_ref = map(guard, saved)
+    calls = _count_collectives()
+    marks = {"setup": time.perf_counter()}
+    # --- the main path: counts from 0 just before, read just after ------
+    ops.reset_launch_counts()
+    out["paths"] = _lm_mesh_paths(mesh, pod, dev, seed, calls=calls,
+                                  marks=marks)
+    out["launches"] = {"flash_attention": ops.FLASH_LAUNCHES,
+                       "rmsnorm": ops.RMSNORM_LAUNCHES,
+                       "swiglu": ops.SWIGLU_LAUNCHES,
+                       "rmsnorm_bwd": ops.RMSNORM_BWD_LAUNCHES,
+                       "swiglu_bwd": ops.SWIGLU_BWD_LAUNCHES}
+    # ---------------------------------------------------------------------
+    ref.rmsnorm_bwd_ref, ref.swiglu_bwd_ref = saved
+    out["plain_backward"] = sorted(set(plain_bwd))
+    out["marks_s"] = {k: v - t_go for k, v in marks.items()}
+    out["collectives"] = {
+        "all_reduce SUM (f32) over model": "wo / wd partial sums "
+        "(reduce_from_model), copy_to_model's backward, CP decode's sum and "
+        "weighted values, the vocabulary's sums of exponentials and gold "
+        "logits",
+        "all_reduce MAX over model": "CP decode's max, the loss's max",
+        "all_gather (list form) over model": "logits over the vocabulary, "
+        "CP decode's q / k / v heads",
+        "all_gather (list form) over data": "logit rows; ZeRO-3 gathers of "
+        "each parameter (bf16 as 16-bit words)",
+        "all_reduce SUM over each data axis": "the train step's loss and "
+        "gradients, one f32 buffer",
+        "all_reduce MAX / SUM over each mesh axis": "error feedback's amax, "
+        "the global norm",
+        "counted": dict(calls)}
+    g = torch.randn(512, 4864, device=dev).to(torch.bfloat16)
+    u = torch.randn(512, 4864, device=dev).to(torch.bfloat16)
+    got = ops.swiglu(g, u).float()
+    want = ref.swiglu_ref(g, u).float()
+    out["swiglu_4864_err"] = float((got - want).abs().max())
+    out["swiglu_4864_ulp"] = float(want.abs().max()) * 2.0 ** -7
     with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.barrier()

@@ -23,6 +23,9 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.occ import CenterPool, OCCStats
+from repro_torch.distributed.shardings import (
+    full_tensor, is_dtensor, like_dtensor, shard_block,
+)
 from repro_torch.models.model import (
     Model, _seg_key, layer_of, stacked_segments,
 )
@@ -98,7 +101,7 @@ def snapshot_from_numpy(version, centers, mask, count, capacity, *,
 
 
 def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda",
-                         dtype: str | None = None) -> Model:
+                         dtype: str | None = None, mesh=None) -> Model:
     """A port `Model` of `cfg` on `device` holding the JAX package's
     parameters: `tree` is the JAX tree after `jax.tree.map(np.asarray,
     params)`, with `lm_head` (D, V) as the JAX package stores it (absent
@@ -108,18 +111,19 @@ def lm_params_from_numpy(tree: dict, cfg, device: str | torch.device = "cuda",
     frontend's projector under "frontend" and the encoder under "encoder"
     ({"segments": {leaf: (enc_layers, ...)}, "norm": (D,)}).  The f32
     leaves (the MoE router, Mamba's a_log, dt_bias and d_skip) stay f32 in
-    a bf16 model.  `dtype` (a torch dtype name) overrides `cfg.dtype`."""
+    a bf16 model.  `dtype` (a torch dtype name) overrides `cfg.dtype`.
+    `mesh`: a model on the mesh, each rank keeping its blocks
+    (`Model.put`)."""
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
-    model = Model(cfg, device=device)
+    model = Model(cfg, device=device, mesh=mesh)
 
     def put(param, a):
         a = _np(a)
         if tuple(a.shape) != tuple(param.shape):
             raise ValueError(f"shape {a.shape} does not match the port's "
                              f"{tuple(param.shape)}")
-        with torch.no_grad():
-            param.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+        Model.put(param, torch.from_numpy(np.array(a, dtype=np.float32)))
 
     put(model.tok_embed, tree["tok_embed"])
     put(model.final_norm, tree["final_norm"])
@@ -200,8 +204,12 @@ def _to_jax_layout(named: dict[str, torch.Tensor]) -> dict:
     """The JAX-layout numpy tree of per-name tensors: each stack's layers
     stacked in layer order (a segment of one layer as it is), the shared
     block's under "shared", the encoder's under "encoder/segments";
-    bfloat16 widened to f32 (exact; numpy has no bfloat16)."""
+    bfloat16 widened to f32 (exact; numpy has no bfloat16).  A DTensor is
+    gathered whole first (a collective of its mesh, in the names' order on
+    every rank)."""
     def host(t):
+        if is_dtensor(t):
+            t = full_tensor(t)
         if t.dtype == torch.bfloat16:
             t = t.to(torch.float32)
         return t.detach().cpu().numpy()
@@ -228,25 +236,33 @@ def _to_jax_layout(named: dict[str, torch.Tensor]) -> dict:
     return tree
 
 
-def train_state_from_numpy(tree, cfg, device: str | torch.device = "cuda"
-                           ) -> TrainState:
+def train_state_from_numpy(tree, cfg, device: str | torch.device = "cuda",
+                           mesh=None) -> TrainState:
     """The port's `TrainState` on `device` from a JAX-layout training state:
     the JAX package's `TrainState` after `jax.tree.map(np.asarray, state)`,
     or the tree a `CheckpointManager` restores into the structure of
     `train_state_to_numpy` (numpy arrays or tensors).  Parameters in
     cfg.dtype through `lm_params_from_numpy`; moments and residuals f32;
-    the step int32."""
-    model = lm_params_from_numpy(tree.params, cfg, device=device)
+    the step int32.  `mesh`: the state of a model on the mesh, each
+    rank's blocks (DTensors placed as the model's parameters)."""
+    model = lm_params_from_numpy(tree.params, cfg, device=device, mesh=mesh)
     params = {n: p.detach() for n, p in model.named_parameters()}
     dev = model.device
+
+    def placed(named):
+        if mesh is None:
+            return named
+        return {n: like_dtensor(shard_block(
+            t, mesh, params[n].placements).contiguous(), params[n])
+            for n, t in named.items()}
     opt = AdamWState(
         step=torch.as_tensor(np.array(_np(tree.opt.step), dtype=np.int32),
                          device=dev),
-        mu=_from_jax_layout(tree.opt.mu, params, dev),
-        nu=_from_jax_layout(tree.opt.nu, params, dev))
+        mu=placed(_from_jax_layout(tree.opt.mu, params, dev)),
+        nu=placed(_from_jax_layout(tree.opt.nu, params, dev)))
     ef = tree.ef
     if isinstance(ef, tuple) and hasattr(ef, "residual"):
-        ef = EFState(_from_jax_layout(ef.residual, params, dev))
+        ef = EFState(placed(_from_jax_layout(ef.residual, params, dev)))
     else:
         ef = ()
     return TrainState(params, opt, ef)
@@ -257,7 +273,8 @@ def train_state_to_numpy(state: TrainState) -> TrainState:
     same NamedTuples (`TrainState`, `AdamWState`, `EFState`; their field
     names are the JAX package's) over JAX-layout trees, so a
     `CheckpointManager` of either package saves it under the JAX package's
-    leaf names."""
+    leaf names.  A mesh state is gathered whole on every rank of its mesh
+    (each rank must call it)."""
     ef = state.ef
     if isinstance(ef, EFState):
         ef = EFState(_to_jax_layout(ef.residual))

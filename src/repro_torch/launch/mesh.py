@@ -23,8 +23,9 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
-__all__ = ["backend_for", "init_ranks", "compat_mesh", "make_production_mesh",
-           "make_test_mesh", "axis_sizes"]
+__all__ = ["backend_for", "init_ranks", "init_ranks_from_env",
+           "compat_mesh", "make_production_mesh", "make_test_mesh",
+           "axis_sizes"]
 
 
 def backend_for(device_type: str, world_size: int) -> str:
@@ -49,6 +50,19 @@ def init_ranks(rank: int, world_size: int, init_method: str,
                             world_size=world_size, rank=rank,
                             timeout=timedelta(seconds=timeout_s))
     return backend
+
+
+def init_ranks_from_env(device_type: str = "cuda") -> str:
+    """`init_ranks` from the variables `torchrun` sets (RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT), unless the process group exists already
+    (then its backend).  A variable that is missing raises KeyError."""
+    if dist.is_initialized():
+        return dist.get_backend()
+    import os
+    env = os.environ
+    return init_ranks(int(env["RANK"]), int(env["WORLD_SIZE"]),
+                      f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+                      device_type)
 
 
 def compat_mesh(shape, axes, device_type: str = "cuda"):

@@ -6,8 +6,15 @@
 Runs the slot-based ServeEngine (token-by-token prefill, decode loop, slot
 recycling) on random weights from `--seed` and reports throughput.  The
 device is the card unless `--device cpu` is passed; on the CPU the model
-runs in float32, as the JAX launcher does on its CPU backend.  Meshes wait
-for the multi-card slice: `--mesh` other than "none" raises.
+runs in float32, as the JAX launcher does on its CPU backend.
+
+`--mesh single|multi` runs one process a rank, started by `torchrun` (its
+RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT; `launch.mesh.
+init_ranks_from_env`), on `make_production_mesh` (too few ranks raise
+torch's own error).  The weights are tensor-parallel over `model` and
+replicated over the data axes (ZeRO-3 off: a decode step would otherwise
+gather every weight), each data rank serves its rows of the slots, and
+every rank prints the same tokens; rank 0 prints.
 """
 from __future__ import annotations
 
@@ -16,9 +23,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.configs import get_arch, reduced
+from repro_torch.distributed.shardings import shard_ctx
+from repro_torch.launch.mesh import init_ranks_from_env, make_production_mesh
 from repro_torch.models import build_model
 from repro_torch.serving.engine import Request, ServeEngine
 
@@ -38,9 +48,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError("meshes wait for the multi-card slice "
-                                  "(ROADMAP.md queue 1: multi-card)")
     dev = resolve_device(args.device)
     arch = get_arch(args.arch)
     if args.reduced:
@@ -48,9 +55,16 @@ def main(argv=None):
     if dev.type == "cpu":
         arch = arch.replace(dtype="float32")
 
+    mesh, show = None, True
+    if args.mesh != "none":
+        init_ranks_from_env(dev.type)
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device_type=dev.type)
+        show = dist.get_rank() == 0
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = build_model(arch, device=dev).init(gen)
+    with shard_ctx(mesh, zero3=False):
+        model = build_model(arch, device=dev, mesh=mesh).init(gen)
     engine = ServeEngine(model, n_slots=args.slots, cache_len=args.cache_len,
                          decode_mode=args.decode_mode)
     reqs = [Request(uid=i, prompt=rng.integers(0, arch.vocab, args.prompt_len),
@@ -60,11 +74,12 @@ def main(argv=None):
     done = engine.run(reqs)
     dt = time.time() - t0
     total_new = sum(len(r.out) for r in done)
-    print(f"served {len(done)} requests, {total_new} new tokens "
-          f"in {dt:.2f}s ({total_new / max(dt, 1e-9):.1f} tok/s, "
-          f"{args.slots} slots, {dev})")
-    for r in done[:4]:
-        print(f"  req {r.uid}: out[:8]={r.out[:8]}")
+    if show:
+        print(f"served {len(done)} requests, {total_new} new tokens "
+              f"in {dt:.2f}s ({total_new / max(dt, 1e-9):.1f} tok/s, "
+              f"{args.slots} slots, {dev})")
+        for r in done[:4]:
+            print(f"  req {r.uid}: out[:8]={r.out[:8]}")
     return done
 
 

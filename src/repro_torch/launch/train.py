@@ -11,8 +11,16 @@ its CPU backend.  For the frontend families (internvl2-2b,
 seamless-m4t-medium) each step's batch adds stub embeddings under
 "frontend", drawn from (seed, step) as the JAX launcher draws them.  A checkpoint holds the training state in the JAX
 package's layout (`convert.train_state_to_numpy`), so either package's
-launcher resumes the other's.  Meshes wait for the multi-card slice:
-`--mesh` other than "none" raises.  Returns the final loss.
+launcher resumes the other's.  Returns the final loss.
+
+`--mesh single|multi` runs one process a rank, started by `torchrun` (its
+RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT; `launch.mesh.
+init_ranks_from_env`), on `make_production_mesh` (too few ranks raise
+torch's own error): the sharded train step (`training/step.py`) over a
+model whose parameters are DTensors of each rank's blocks.  Its
+checkpoints are the same JAX-layout state, gathered whole on every rank
+and written by rank 0; `--resume` puts each rank's blocks back as
+DTensors (`convert.train_state_from_numpy(mesh=)`).  Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import CheckpointManager
@@ -28,6 +37,8 @@ from repro_torch.configs import TrainConfig, get_arch, reduced
 from repro_torch.convert import train_state_from_numpy, train_state_to_numpy
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.distributed.fault import StepWatchdog
+from repro_torch.distributed.shardings import shard_ctx
+from repro_torch.launch.mesh import init_ranks_from_env, make_production_mesh
 from repro_torch.models import build_model
 from repro_torch.training.step import make_train_step, train_state_init
 
@@ -51,9 +62,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError("meshes wait for the multi-card slice "
-                                  "(ROADMAP.md queue 1: multi-card)")
     dev = resolve_device(args.device)
     arch = get_arch(args.arch)
     if args.reduced:
@@ -66,10 +74,25 @@ def main(argv=None):
     tcfg = TrainConfig(learning_rate=args.lr, warmup_steps=max(2, args.steps // 10),
                        total_steps=args.steps, microbatches=args.microbatches,
                        seed=args.seed)
-    model = build_model(arch, device=dev)
+    mesh, show = None, True
+    if args.mesh != "none":
+        init_ranks_from_env(dev.type)
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device_type=dev.type)
+        show = dist.get_rank() == 0
+    with shard_ctx(mesh):
+        model = build_model(arch, device=dev, mesh=mesh)
     pipe = TokenPipeline(arch.vocab, args.batch, args.seq, seed=args.seed)
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     watchdog = StepWatchdog()
+
+    def save(step):
+        tree = train_state_to_numpy(state)      # on a mesh, every rank
+        if show:
+            ckpt.save(step, tree)
+            ckpt.wait()
+        if mesh is not None:
+            dist.barrier()
 
     model.init(torch.Generator(device=dev).manual_seed(args.seed))
     state = train_state_init(
@@ -78,13 +101,16 @@ def main(argv=None):
     if ckpt and args.resume and ckpt.latest_step() is not None:
         start_step, tree = ckpt.restore(train_state_to_numpy(state),
                                         device="cpu")
-        state = train_state_from_numpy(tree, arch, device=dev)
-        print(f"resumed from step {start_step}")
+        with shard_ctx(mesh):
+            state = train_state_from_numpy(tree, arch, device=dev, mesh=mesh)
+        if show:
+            print(f"resumed from step {start_step}")
     step_fn = make_train_step(model, tcfg)
 
     n_params = model.param_count()
-    print(f"arch={arch.name} params={n_params:,} steps={args.steps} "
-          f"batch={args.batch} seq={args.seq}")
+    if show:
+        print(f"arch={arch.name} params={n_params:,} steps={args.steps} "
+              f"batch={args.batch} seq={args.seq}")
     t_start = time.time()
     loss = float("nan")
     for step in range(start_step, args.steps):
@@ -101,20 +127,20 @@ def main(argv=None):
         loss = float(metrics["loss"])
         dt = time.time() - t0
         ev = watchdog.observe(step, dt)
-        if ev:
+        if ev and show:
             print(f"[straggler] step {step}: {dt:.2f}s vs ewma {ev.ewma:.2f}s")
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if show and (step % args.log_every == 0 or step == args.steps - 1):
             toks = args.batch * args.seq
             print(f"step {step:5d} loss {loss:8.4f} "
                   f"gnorm {float(metrics['grad_norm']):7.3f} "
                   f"lr {float(metrics['lr']):.2e} {dt:6.2f}s "
                   f"({toks / max(dt, 1e-9):,.0f} tok/s)")
         if ckpt and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, train_state_to_numpy(state))
+            save(step + 1)
     if ckpt:
-        ckpt.save(args.steps, train_state_to_numpy(state))
-        ckpt.wait()
-    print(f"done in {time.time() - t_start:.1f}s; final loss {loss:.4f}")
+        save(args.steps)
+    if show:
+        print(f"done in {time.time() - t_start:.1f}s; final loss {loss:.4f}")
     return loss
 
 

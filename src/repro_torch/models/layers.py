@@ -8,16 +8,30 @@ their backward kernels through `ops`' autograd Functions.  (The JAX
 package's training path runs its plain versions, because Pallas has no
 VJP.)  `backend` is `ops`' dispatch ("auto", "cuda" or "plain").
 `cross_entropy_chunked` is the training loss.
+
+On a mesh (`mp`, a `distributed.shardings.ModelMesh` whose model axis has
+more than one rank) `mlp_apply` runs its rank's columns of d_ff (wg, wu
+column-split, the swiglu kernel on the rank's columns, wd row-split and the
+partial sums all-reduced), `embed` looks up the rank's rows of the
+vocabulary (a masked lookup, then the sum), and `cross_entropy_chunked`
+takes the logsumexp over the vocabulary's blocks (the max and the sum of
+exponentials all-reduced) and the gold logit from the rank that holds it.
+Where the axis does not divide d_ff or the vocabulary, the weight is whole
+on every rank and the layer runs as on one device.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.shardings import (
+    copy_to_model, reduce_from_model,
+)
 from repro_torch.kernels import ops
 
 __all__ = ["dense_init", "embed_init", "rmsnorm", "rope_freqs", "apply_rope",
-           "mlp_init", "mlp_apply", "cross_entropy_chunked"]
+           "mlp_init", "mlp_apply", "embed", "cross_entropy_chunked"]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -74,10 +88,30 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype
             "wd": dense_init(gen, d_ff, d_model, dtype)}
 
 
-def mlp_apply(p, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, backend: str = "auto",
+              mp=None) -> torch.Tensor:
+    """SwiGLU MLP; with `mp` (a mesh that splits d_ff: the caller
+    decides), `p` holds this rank's columns of wg / wu and rows of wd, and
+    the ranks' partial sums are added."""
+    x = copy_to_model(x, mp)
     g = x @ p["wg"]
     u = x @ p["wu"]
-    return ops.swiglu(g, u, backend=backend) @ p["wd"]
+    return reduce_from_model(ops.swiglu(g, u, backend=backend) @ p["wd"], mp)
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor, vocab: int,
+          mp=None) -> torch.Tensor:
+    """table[ids]; on a mesh that splits the vocabulary, `table` holds this
+    rank's block of rows: ids outside it give zeros, and the ranks' rows
+    are summed (exactly: one rank's is non-zero)."""
+    if mp is None or not mp.splits(vocab):
+        return table[ids]
+    n = table.shape[0]
+    local = ids - mp.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return reduce_from_model(
+        torch.where(inside[..., None], rows, torch.zeros_like(rows)), mp)
 
 
 # ---------------------------------------------------------------------------
@@ -93,24 +127,47 @@ def _chunk_ce(hx: torch.Tensor, lm_head: torch.Tensor, lx: torch.Tensor
     return torch.sum(lse - gold)
 
 
+def _chunk_ce_vocab_parallel(hx: torch.Tensor, lm_head: torch.Tensor,
+                             lx: torch.Tensor, mp) -> torch.Tensor:
+    """`_chunk_ce` with `lm_head` this rank's (D, V/m) block of columns:
+    the logsumexp from the max and the sum of exponentials over every
+    block (a MAX and a SUM over the model axis) and the gold logit from
+    the rank that holds its column."""
+    logits = copy_to_model(hx, mp).to(torch.float32) \
+        @ lm_head.to(torch.float32)
+    mx = mp.all_reduce(logits.detach().amax(-1), dist.ReduceOp.MAX)
+    se = reduce_from_model(torch.exp(logits - mx[..., None]).sum(-1), mp)
+    n = lm_head.shape[1]
+    local = lx - mp.rank * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = reduce_from_model(torch.where(inside, gold,
+                                         torch.zeros_like(gold)), mp)
+    return torch.sum(mx + torch.log(se) - gold)
+
+
 def cross_entropy_chunked(h: torch.Tensor, lm_head: torch.Tensor,
-                          labels: torch.Tensor, seq_chunk: int = 512
-                          ) -> torch.Tensor:
+                          labels: torch.Tensor, seq_chunk: int = 512,
+                          mp=None) -> torch.Tensor:
     """Mean next-token CE.  h (B, S, D), lm_head (D, V), labels (B, S)
     int64.  One sequence chunk of `seq_chunk` at a time (one chunk when S is
     not a multiple of it), so peak logits memory is (B, chunk, V) f32; the
     backward recomputes each chunk's logits (`torch.utils.checkpoint`).
     Returns a 0-d f32 tensor: the chunks' sums, in order, over B * S.
-    f32 matmuls stay IEEE (the caller keeps TF32 off)."""
+    f32 matmuls stay IEEE (the caller keeps TF32 off).  With `mp` (a mesh
+    that splits the vocabulary), `lm_head` is this rank's (D, V/m) block
+    and the loss is the same on every model rank."""
     b, s, _ = h.shape
     c = min(seq_chunk, s)
     if s % c:
         c = s
+    fn, extra = (_chunk_ce, ()) if mp is None else \
+        (_chunk_ce_vocab_parallel, (mp,))
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     record = torch.is_grad_enabled()
     for i in range(s // c):
         hx, lx = h[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
-        total = total + (checkpoint(_chunk_ce, hx, lm_head, lx,
+        total = total + (checkpoint(fn, hx, lm_head, lx, *extra,
                                     use_reentrant=False) if record
-                         else _chunk_ce(hx, lm_head, lx))
+                         else fn(hx, lm_head, lx, *extra))
     return total / (b * s)

@@ -16,6 +16,13 @@ adds the static cross keys and values "ck", "cv").  Every block norms its
 input with the rmsnorm kernel; the recurrent blocks' caches hold state,
 not keys and values.
 
+On a mesh (`mp`, a `distributed.shardings.ModelMesh`) the blocks run this
+rank's part: its heads (`models/attention.py`) and its columns of d_ff
+(`models/layers.mlp_apply`).  Only the `attn_mlp` kind runs on a model
+axis of more than one rank (`require_mesh_ported`); every kind runs on the
+data axes, whose parameters `run_stack_*` gather before a block runs
+(`local_weights`).
+
 Where autograd records, `run_stack_train` rematerializes each block as
 `cfg.remat` says (the counterpart of the JAX package's `_remat_wrap`):
 "full" checkpoints the block (its backward reruns the forward from the
@@ -35,15 +42,17 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from repro_torch.distributed.shardings import is_dtensor, unshard
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import mlp_apply, mlp_init, rmsnorm
 
-__all__ = ["SEGMENT_KINDS", "require_ported", "segments_for", "block_shapes",
-           "init_block", "block_train", "block_decode", "init_block_cache",
-           "run_stack_train", "run_stack_decode"]
+__all__ = ["SEGMENT_KINDS", "require_ported", "require_mesh_ported",
+           "segments_for", "block_shapes", "init_block", "block_train",
+           "block_decode", "init_block_cache", "run_stack_train",
+           "run_stack_decode", "local_weights"]
 
 # the kinds the port runs
 SEGMENT_KINDS = ("attn_mlp", "attn_moe", "shared_attn", "mamba", "mlstm",
@@ -73,6 +82,41 @@ _RECURRENT = {
 def require_ported(kind: str) -> None:
     if kind not in SEGMENT_KINDS:
         raise ValueError(kind)
+
+
+# the kinds that run on a model axis of more than one rank
+MESH_KINDS = ("attn_mlp",)
+
+
+def require_mesh_ported(cfg, mp) -> None:
+    """Raise for what the language model's mesh does not run: a kind other
+    than `attn_mlp`, or a frontend, on a model axis of more than one rank,
+    and the dry run's levers (`seq_shard_acts`, `force_decode_mode`)."""
+    if mp is None:
+        return
+    what = []
+    if mp.ctx.seq_shard_acts:
+        what.append("seq_shard_acts")
+    if mp.ctx.force_decode_mode is not None:
+        what.append("force_decode_mode")
+    if mp.size > 1:
+        what += sorted({k for k, _, _ in segments_for(cfg)
+                        if k not in MESH_KINDS})
+        if cfg.frontend or cfg.is_encdec:
+            what.append(f"the {cfg.frontend} frontend")
+    if what:
+        raise NotImplementedError(
+            f"{', '.join(what)} on this mesh: queued after the dense "
+            "family's tensor parallelism (ROADMAP.md queue 1: multi-card)")
+
+
+def local_weights(p, mp=None) -> dict:
+    """A block's (or any) parameter dict as the tensors a forward runs on:
+    a DTensor (a model's own parameter on a mesh) gathered over the data
+    axes (ZeRO-3) into this rank's tensor-parallel block; a plain tensor
+    (one device, or the train step's gathered leaves) as it is."""
+    return {name: unshard(p[name], mp.data_axes) if is_dtensor(p[name])
+            else p[name] for name in p.keys()}
 
 
 def segments_for(cfg) -> list[tuple[str, int, bool]]:
@@ -160,11 +204,13 @@ def init_block(gen: torch.Generator, cfg, kind: str, dtype
     return p
 
 
-def _ffn(p, x, cfg, backend):
+def _ffn(p, x, cfg, backend, mp=None):
     """The block's second half: x + MLP or MoE of rmsnorm(x, norm2)."""
     if "wg" in p:
         return x + mlp_apply(p, rmsnorm(x, p["norm2"], cfg.norm_eps,
-                                        backend), backend)
+                                        backend), backend,
+                             mp if mp is not None and mp.splits(cfg.d_ff)
+                             else None)
     if "router" in p:
         return x + moe_mod.moe_apply(
             p, rmsnorm(x, p["norm2"], cfg.norm_eps, backend), cfg, backend)
@@ -172,7 +218,7 @@ def _ffn(p, x, cfg, backend):
 
 
 def block_train(p, x, cfg, kind: str, positions, backend: str = "auto",
-                cross_kv=None):
+                cross_kv=None, mp=None):
     """-> (x, cache contribution): {"k", "v"} of an attention block (and
     the cross keys and values "ck", "cv" of a decoder block), the state
     after the sequence of a recurrent one.  For `dec_attn_mlp`, `cross_kv`
@@ -186,7 +232,7 @@ def block_train(p, x, cfg, kind: str, positions, backend: str = "auto",
     if kind == "enc_attn_mlp":
         a, (k, v) = _bidir_attention(p, h, cfg, positions)
     else:
-        a, (k, v) = attn.attention_train(p, h, cfg, positions, backend)
+        a, (k, v) = attn.attention_train(p, h, cfg, positions, backend, mp)
     x = x + a
     cache = {"k": k, "v": v}
     if kind == "dec_attn_mlp":
@@ -194,7 +240,7 @@ def block_train(p, x, cfg, kind: str, positions, backend: str = "auto",
         hx = rmsnorm(x, p["norm_x"], cfg.norm_eps, backend)
         x = x + attn.cross_attention(p, hx, cfg, ckv)
         cache["ck"], cache["cv"] = ckv["k"], ckv["v"]
-    return _ffn(p, x, cfg, backend), cache
+    return _ffn(p, x, cfg, backend, mp), cache
 
 
 def _bidir_attention(p, h, cfg, positions):
@@ -209,13 +255,16 @@ def _bidir_attention(p, h, cfg, positions):
 
 
 def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
-                     device, enc_len: int = 0) -> dict[str, torch.Tensor]:
+                     device, enc_len: int = 0, mp=None,
+                     mode: str = "tp") -> dict[str, torch.Tensor]:
     """A layer's zeroed cache; a decoder block's cross keys and values
-    (batch, enc_len or cfg.frontend_len, Hkv, hd) beside its own."""
+    (batch, enc_len or cfg.frontend_len, Hkv, hd) beside its own.  On a
+    mesh, this rank's block in decode mode `mode`'s layout
+    (`attention.init_kv_cache`)."""
     require_ported(kind)
     if kind in _RECURRENT:
         return _RECURRENT[kind].cache(cfg, batch, dtype, device)
-    c = attn.init_kv_cache(cfg, batch, cache_len, dtype, device)
+    c = attn.init_kv_cache(cfg, batch, cache_len, dtype, device, mp, mode)
     if kind == "dec_attn_mlp":
         cc = attn.init_kv_cache(cfg, batch, enc_len or cfg.frontend_len,
                                 dtype, device)
@@ -224,19 +273,20 @@ def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
 
 
 def block_decode(p, x, cfg, kind: str, cache, pos, decode_mode: str = "tp",
-                 backend: str = "auto"):
+                 backend: str = "auto", mp=None):
     require_ported(kind)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, backend)
     if kind in _RECURRENT:
         return x + _RECURRENT[kind].decode(p, h, cfg, cache), cache
-    a, _ = attn.attention_decode(p, h, cfg, cache, pos, mode=decode_mode)
+    a, _ = attn.attention_decode(p, h, cfg, cache, pos, mode=decode_mode,
+                                 mp=mp)
     x = x + a
     if kind == "dec_attn_mlp":
         # the static cross keys and values of the prefill (or init_cache)
         hx = rmsnorm(x, p["norm_x"], cfg.norm_eps, backend)
         x = x + attn.cross_attention(p, hx, cfg,
                                      {"k": cache["ck"], "v": cache["cv"]})
-    return _ffn(p, x, cfg, backend), cache
+    return _ffn(p, x, cfg, backend, mp), cache
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -261,28 +311,29 @@ def _remat_wrap(fn, cfg):
 
 def run_stack_train(layers, x, cfg, kind: str, positions,
                     want_cache: bool = False, backend: str = "auto",
-                    cross_kv=None):
+                    cross_kv=None, mp=None):
     """Run the blocks of one segment in order, each rematerialized as
     `cfg.remat` says; -> (x, [per-layer cache] or None).  `cross_kv`: the
-    encoder's output, for a decoder segment."""
+    encoder's output, for a decoder segment.  `mp`: the mesh, if any."""
     block = _remat_wrap(block_train, cfg)
     caches = []
     for p in layers:
         # the layer's tensors as they are now (a recompute in the backward
         # must see the ones the forward saw: under torch.func.functional_call
         # the module's own attributes are restored by then)
-        p = {name: p[name] for name in p.keys()}
-        x, cache = block(p, x, cfg, kind, positions, backend, cross_kv)
+        p = local_weights(p, mp)
+        x, cache = block(p, x, cfg, kind, positions, backend, cross_kv, mp)
         if want_cache:
             caches.append(cache)
     return x, (caches if want_cache else None)
 
 
 def run_stack_decode(layers, x, cfg, kind: str, caches, pos,
-                     decode_mode: str = "tp", backend: str = "auto"):
+                     decode_mode: str = "tp", backend: str = "auto",
+                     mp=None):
     """One decode step through the blocks of one segment; the per-layer
     caches are written in place and returned."""
     for p, cache in zip(layers, caches):
-        x, _ = block_decode(p, x, cfg, kind, cache, pos, decode_mode,
-                            backend)
+        x, _ = block_decode(local_weights(p, mp), x, cfg, kind, cache, pos,
+                            decode_mode, backend, mp)
     return x, caches

@@ -13,8 +13,10 @@ Gradients are dicts keyed by the port's parameter names.  The JAX package
 quantizes each leaf of its tree with one scale, and a segment's leaf
 stacks every layer's tensor; `groups` (name -> group key) gives the
 tensors that share a scale, so the port quantizes exactly as the
-reference does.  The collective form takes one scale a tensor; the
-grouped scales come to it with the sharded train step, its first caller.
+reference does.  The collective form takes one scale a tensor, as the
+JAX package's does.  The sharded train step, as the JAX package's, runs
+`apply_error_feedback` on the logical gradients: each rank its blocks,
+with each group's amax taken over the whole leaf (`amax_reduce`).
 """
 from __future__ import annotations
 
@@ -60,10 +62,14 @@ def ef_init(grads: dict[str, torch.Tensor]) -> EFState:
 
 @torch.no_grad()
 def apply_error_feedback(grads: dict[str, torch.Tensor], ef: EFState,
-                         groups: dict[str, str] | None = None):
+                         groups: dict[str, str] | None = None,
+                         amax_reduce=None):
     """Add the residual, quantize / dequantize with one scale per group (per
     tensor when `groups` is None), keep the new residual.  Returns
-    (dequantized f32 grads, new EFState)."""
+    (dequantized f32 grads, new EFState).  On a mesh each rank passes its
+    blocks and `amax_reduce`, which takes the stacked (groups,) amax of its
+    blocks to the amax over the whole leaves (an all-reduce MAX), so every
+    block quantizes with its whole leaf's scale."""
     corrected = {n: g.to(torch.float32) + ef.residual[n]
                  for n, g in grads.items()}
     amax: dict[str, torch.Tensor] = {}
@@ -71,6 +77,9 @@ def apply_error_feedback(grads: dict[str, torch.Tensor], ef: EFState,
         key = n if groups is None else groups[n]
         m = torch.max(torch.abs(c))
         amax[key] = m if key not in amax else torch.maximum(amax[key], m)
+    if amax_reduce is not None:
+        whole = amax_reduce(torch.stack(list(amax.values())))
+        amax = dict(zip(amax, whole.unbind()))
     out, residual = {}, {}
     for n, c in corrected.items():
         scale = _scale(amax[n if groups is None else groups[n]])

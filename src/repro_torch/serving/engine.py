@@ -13,6 +13,12 @@ recycled once its request has `max_new` tokens or its position reaches
 The engine records each tick's host seconds in `step_seconds` (the tick
 ends in the host read of its argmax) and counts its `decode_step` calls
 in `n_decode_calls`.
+
+On a mesh (a `Model` built with `mesh=`) every rank runs the same engine:
+`decode_step` takes the whole batch and returns the whole logits on every
+rank, so every rank's host logic (argmax, slots, positions) is the same;
+the caches are the rank's blocks.  Decode mode "cp" runs as "tp" where the
+model axis does not divide cache_len (`Model.decode_layout`).
 """
 from __future__ import annotations
 
@@ -41,9 +47,9 @@ class ServeEngine:
         self.model = model
         self.n_slots = n_slots
         self.cache_len = cache_len
-        self.decode_mode = decode_mode
+        self.decode_mode = model.decode_layout(cache_len, decode_mode)
         self.greedy = greedy    # decoding is greedy, as in the JAX package
-        self.caches = model.init_cache(n_slots, cache_len)
+        self.caches = model.init_cache(n_slots, cache_len, self.decode_mode)
         self.pos = np.zeros((n_slots,), np.int64)
         self.active: list[Request | None] = [None] * n_slots
         self.last_tok = np.zeros((n_slots,), np.int64)

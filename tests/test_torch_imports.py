@@ -12,7 +12,8 @@ step) and one of `reduced(olmoe-1b-7b)` (the MoE block), and imports the train-w
 example, then dry-runs a narrow granite-3-2b decode cell on the meta device
 (`roofline`, `launch/specs`, `launch/dryrun`), and runs the DP-means pass
 on a one-rank gloo mesh (`launch/mesh`, `distributed/shardings`,
-`distributed/elastic`).
+`distributed/elastic`) and one train step of `reduced(qwen3-4b)` on a
+one-rank (data, model) mesh (the language model's mesh).
 """
 import ast
 import os
@@ -146,6 +147,16 @@ occ_m = occ_dp_means(x, 4.0, 64, k_max=64, max_iters=2, device="cpu",
 assert torch.equal(occ_m.z, occ.z) and torch.equal(occ_m.pool.centers,
                                                    occ.pool.centers)
 assert elastic.plan_shrunk_mesh(mesh, 0).new_shape == {"data": 1}
+mesh2 = compat_mesh((1, 1), ("data", "model"), device_type="cpu")
+with shardings.shard_ctx(mesh2):
+    lm_m = build_model(cfg, device="cpu", mesh=mesh2).init(
+        torch.Generator().manual_seed(0))
+st = train_state_init({n: p.detach() for n, p in lm_m.named_parameters()}, tc)
+st, met_m = make_train_step(lm_m, tc)(st, TokenPipeline(cfg.vocab, 2, 8).batch_at(0))
+lm1 = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+st = train_state_init({n: p.detach() for n, p in lm1.named_parameters()}, tc)
+st, met_1 = make_train_step(lm1, tc)(st, TokenPipeline(cfg.vocab, 2, 8).batch_at(0))
+assert abs(float(met_m["loss"]) - float(met_1["loss"])) < 1e-5
 dist.destroy_process_group()
 assert not _build._LIBS   # the CPU path never builds or loads a kernel
 print("OK", int(res.pool.count))

@@ -218,11 +218,27 @@ def test_launch_serve_runs_on_cpu():
     assert len(done) == 3 and all(len(r.out) == 3 for r in done)
 
 
-def test_unported_parts_raise():
+def test_unported_parts_raise(monkeypatch):
+    import socket
+    import torch.distributed as dist
+    from repro_torch.distributed.shardings import ModelMesh
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError):
-        main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
-              "--mesh", "single"])
+    # `--mesh single` joins the torchrun ranks (here one) and builds the
+    # production mesh, which one rank is too few for: torch's own error
+    # (`test_torch_lm_mesh.py` serves on a small mesh)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    try:
+        with pytest.raises(RuntimeError, match="256"):
+            main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
+                  "--mesh", "single"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     # the frontend families build and run (`test_torch_frontend.py` and
     # `test_torch_encdec.py` hold them to the JAX package)
     for name in ("seamless-m4t-medium", "internvl2-2b"):
@@ -238,13 +254,18 @@ def test_unported_parts_raise():
     x = torch.zeros((1, 1, cfg.d_model))
     cache = attn.init_kv_cache(cfg, 1, 8, torch.float32, "cpu")
     p = tm.segments["seg_00"][0]
-    with pytest.raises(NotImplementedError):
-        attn.attention_decode(p, x, cfg, cache, torch.zeros(1, dtype=torch.long),
-                              mode="cp", mesh=object())
-    # "cp" without a mesh runs as "tp"
+    # "cp" without a mesh runs as "tp", and so it does on a mesh without a
+    # model axis (`test_torch_lm_mesh.py` runs it on model axes)
     out_cp, _ = attn.attention_decode(p, x, cfg, dict(cache),
                                       torch.zeros(1, dtype=torch.long), "cp")
     assert out_cp.shape == (1, 1, cfg.d_model)
+
+    class DataOnly:
+        shape = {"data": 1}
+    out_mesh, _ = attn.attention_decode(
+        p, x, cfg, dict(cache), torch.zeros(1, dtype=torch.long), mode="cp",
+        mp=ModelMesh(DataOnly()))
+    assert torch.equal(out_mesh, out_cp)
     # a cache write past the end raises (the JAX package would clamp it)
     with pytest.raises(IndexError):
         attn._update_cache(cache["k"], torch.zeros((1, 1, 2, 16)),
