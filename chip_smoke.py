@@ -18,12 +18,12 @@ its crash-recoverable variant (a master killed and a follower promoted,
 the promoted master's WAL recovered) on the card against the fused
 single-process pass, serves the language model qwen3-4b (prefill and
 the slot engine's decode) at full width and depth, and trains granite-3-2b
-at full width and 16 of its 40 layers (four AdamW steps of 4 x 4096
+at full width and 16 of its 40 layers (three AdamW steps of 4 x 4096
 tokens through the rmsnorm and swiglu kernels' forward and backward), and
 runs the Mixture-of-Experts model olmoe-1b-7b: its router and five
 dispatch impls at full width, served at full width and depth (a 4 x 4096
 prefill and the slot engine's decode, the swiglu kernel on every layer's
-expert-grouped tensor) and trained at full width and 4 of its 16 layers,
+expert-grouped tensor) and trained at full width and 2 of its 16 layers,
 and phi3.5-moe at full width and 2 layers.  Then the system's
 remaining entry points: the train-while-serve pipeline (two tenants'
 trainer threads, sixteen client threads behind a coalescing router, a QoS
@@ -55,7 +55,10 @@ the language model's mesh: four ranks share the card on a (data 2,
 model 2) mesh; qwen3-4b served at full width and depth (the slot engine in
 decode modes "tp" and "cp", and a prefill through the flash kernel on each
 rank's heads) and granite-3-2b's tensor- and data-parallel train step at
-full width, each held to one process's run on the card.
+full width, and the MoE family with its experts split over the model axis
+(olmoe-1b-7b served at full depth and trained, phi3.5-moe prefilled and
+trained, the swiglu kernels on each rank's experts), each held to one
+process's run on the card.
 `--phases serve` or `examples` alone trains the
 retrieval index first; `--phases cluster`, `ha`, `serve_clusters`,
 `curation`, `hybrid`, `xlstm`, `frontends`, `dryrun`, `mesh` or `lm_mesh`
@@ -184,12 +187,13 @@ CUR_K_MAX = 512
 # (cut from full depth when the hybrid and xlstm phases came in; at 20
 # layers the phase took 54 s on an H100 80GB HBM3 at 700 W):
 # SHAPES["train_4k"]'s sequence, its global batch of 256 cut to 4 for one
-# card; four steps, the first two held against a run on the plain versions
-# from the same state (cut from six and three when the moe phase came in).
+# card; three steps, the first two held against a run on the plain
+# versions from the same state (cut from six and three when the moe phase
+# came in, and from four when the lm_mesh phase's MoE parts came in).
 TRAIN_LAYERS = 16
 TRAIN_BATCH = 4
 TRAIN_SEQ = 4096
-TRAIN_STEPS = 4
+TRAIN_STEPS = 3      # cut from 4 when the lm_mesh phase's MoE parts came in
 TRAIN_PLAIN_STEPS = 2
 # bf16 at 16 layers: loss and grad norm of the kernels' run against the
 # plain versions' within these fractions.  The two runs round the
@@ -219,8 +223,10 @@ MOE_ORACLE_CF = 8.0
 MOE_IMPL_TOL = 1e-4
 MOE_TIE_MARGIN = 1e-6
 # Full depth, bf16: a MOE_PREFILL_BATCH x TRAIN_SEQ (4 x 4096) prefill,
-# then 4 requests of prompt 64 and MOE_SERVE_MAX_NEW new tokens on 4
-# slots.  Last-token logits of two routes
+# then 4 requests of prompt MOE_SERVE_PROMPT and MOE_SERVE_MAX_NEW new
+# tokens on 4 slots (the prompt cut from 64 to 16 when the lm_mesh phase's
+# MoE parts came in: the engine prefills token by token, one decode call
+# a prompt token).  Last-token logits of two routes
 # (kernels against plain versions; decode_step after a prefill against one
 # longer prefill) agree within this fraction of max |logit|: the bf16
 # roundings of BF16_LOGIT_TOL's reasoning over 16 layers (qwen3-4b's bar of
@@ -234,6 +240,7 @@ MOE_TIE_MARGIN = 1e-6
 # reference's design.
 MOE_BF16_LOGIT_TOL = 0.1
 MOE_PREFILL_BATCH = 4
+MOE_SERVE_PROMPT = 16
 MOE_SERVE_MAX_NEW = 16     # cut from 64 (hybrid phase), 32 (mesh phase)
 # Training olmoe at full width and MOE_TRAIN_LAYERS of its 16 layers (its
 # 12 bytes a parameter at full depth, 83 GB, exceed the card; cut from 8
@@ -245,9 +252,9 @@ MOE_SERVE_MAX_NEW = 16     # cut from 64 (hybrid phase), 32 (mesh phase)
 # layer's recompute of the capacity dispatch, whose k-loop keeps eight
 # (4, 4096, 64, 640) f32 one-hots, and its backward's transients) passes
 # 75 GB.
-MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_LAYERS = 2      # cut from 4 when the lm_mesh MoE parts came in
 MOE_TRAIN_BATCH = 2
-MOE_TRAIN_STEPS = 4
+MOE_TRAIN_STEPS = 3      # cut from 4 when the lm_mesh MoE parts came in
 MOE_TRAIN_PLAIN_STEPS = 2
 # The recurrent families (the hybrid and xlstm phases), widths never cut:
 # zamba2-7b (81 layers: 13 x (6 Mamba2 layers + the shared attention and
@@ -335,11 +342,12 @@ REC_SERVE_MAX_NEW = 16
 # token, about 30 ops a step, twice (remat), and differentiates it, all
 # dispatched from the host (a step of 4 x 2048 took 6.2 s, 91 % of it
 # idle; 4 x 1024 4.4 s, 92 % idle; on an H100 80GB HBM3 at 700 W).  Cut
-# from 1024 to 512 when the mesh phase came in.
+# from 1024 to 512 (two chunks of 256) when the mesh phase came in;
+# REC_TRAIN_STEPS from 4 to 3 when the lm_mesh phase's MoE parts came in.
 REC_TRAIN_LAYERS = {"hybrid": 12, "xlstm": 8}
 REC_TRAIN_BATCH = 4
 REC_TRAIN_SEQ = {"hybrid": 4096, "xlstm": 512}
-REC_TRAIN_STEPS = 4
+REC_TRAIN_STEPS = 3
 REC_TRAIN_PLAIN_STEPS = 2
 # The grad norm's bar against the plain run: TRAIN_GNORM_TOL, but 0.1 for
 # xlstm.  Its mLSTM's gradients carry 1 / (n.q)^2 (REC_F32_GRAD_TOL's
@@ -383,7 +391,7 @@ FE_SERVE_MAX_NEW = 16
 # FE_TRAIN_PLAIN_STEPS against the plain versions within TRAIN_LOSS_TOL and
 # TRAIN_GNORM_TOL.
 FE_TRAIN_LAYERS = {"internvl2-2b": 8, "seamless-m4t-medium": 12}
-FE_TRAIN_STEPS = 4
+FE_TRAIN_STEPS = 3       # cut from 4 when the lm_mesh MoE parts came in
 FE_TRAIN_PLAIN_STEPS = 2
 # The dryrun phase: the roofline and the meta-device dry run held against
 # three cells on the card, bf16, full width: (a) the train phase's
@@ -424,7 +432,8 @@ MESH_TIMEOUT_S = 300
 # a call, through the host, from four processes time-slicing the card), so
 # the engine runs were cut from 4 requests of prompt 16 (72 calls a mode,
 # the phase 140 s) to 2 of prompt 8 (24 calls, 88 s alone, 82.5 s in a
-# full run of 980 s) and then to these (16 calls).  granite-3-2b trained at
+# full run of 980 s), then to prompt 4 and 8 new (16 calls) and, when the
+# MoE parts came in, to 4 new (12 calls; the MoE engine keeps 8).  granite-3-2b trained at
 # full width and LM_MESH_TRAIN_LAYERS of its 40 layers, bf16,
 # LM_MESH_TRAIN_BATCH x LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_STEPS steps, and one
 # error-feedback step on (pod 2, model 2); and in f32 at full width and
@@ -442,7 +451,7 @@ LM_MESH_F32_LAYERS = 2
 LM_MESH_SLOTS = 4
 LM_MESH_REQUESTS = 2
 LM_MESH_PROMPT = 4
-LM_MESH_NEW = 8
+LM_MESH_NEW = 4              # cut from 8 when the MoE parts came in
 LM_MESH_F32_SERVE = (2, 4, 4)
 LM_MESH_CACHE = 64
 LM_MESH_PREFILL_B = 2
@@ -450,10 +459,33 @@ LM_MESH_PREFILL_S = 512
 LM_MESH_TRAIN_LAYERS = 8
 LM_MESH_TRAIN_BATCH = 4
 LM_MESH_TRAIN_SEQ = 1024
-LM_MESH_TRAIN_STEPS = 3
+LM_MESH_TRAIN_STEPS = 2      # cut from 3 when the MoE parts came in
 LM_MESH_SPREAD_X = 16.0
 LM_MESH_F32_RTOL = 1e-5
 LM_MESH_TIMEOUT_S = 300
+# The lm_mesh phase's MoE parts, in the same spawn and on the same (data 2,
+# model 2) mesh, the experts split over model (olmoe-1b-7b's 64 experts 32
+# a rank, phi3.5-moe's 16 experts 8 a rank): olmoe-1b-7b at full width and
+# LM_MESH_F32_LAYERS layers in f32 (a LM_MESH_PREFILL_B x LM_MESH_PREFILL_S
+# prefill whose logits stay within LM_MESH_F32_RTOL of max(1, max |logit|)
+# of one process's, its routing held by the moe phase's tie rule
+# (MOE_TIE_MARGIN) with equal drops, the five impls on layer 0's weights
+# at the config's capacity factor each held to the same impl in one
+# process at that bar, and the engine's greedy tokens (LM_MESH_F32_SERVE)
+# in "tp" and "cp" identical to one process's); at full width and depth
+# in bf16, served in "tp" (the engine's LM_MESH_REQUESTS requests of
+# LM_MESH_PROMPT + LM_MESH_MOE_NEW tokens) and a prefill, held to one
+# process's by the spread rule (LM_MESH_SPREAD_X); trained at full width
+# and LM_MESH_MOE_LAYERS layers in bf16 (LM_MESH_MOE_TRAIN_BATCH x
+# LM_MESH_TRAIN_SEQ, LM_MESH_MOE_TRAIN_STEPS steps) by the spread rule and
+# one f32 step by LM_MESH_F32_RTOL; phi3.5-moe at full width and
+# LM_MESH_MOE_LAYERS layers in bf16, a prefill and one train step of
+# LM_MESH_PREFILL_B x LM_MESH_PREFILL_S, each by the spread rule.
+LM_MESH_MOE_NEW = 8
+LM_MESH_MOE_LAYERS = 2
+LM_MESH_MOE_TRAIN_BATCH = 2
+LM_MESH_MOE_TRAIN_STEPS = 2
+LM_MESH_MOE_IMPLS = ("capacity", "gather", "hybrid", "dense", "ragged")
 
 
 def emit(obj) -> None:
@@ -3896,10 +3928,11 @@ class Smoke:
         parameter count and the f32 routers; a 4 x 4096 prefill with flash
         (exact launches, caches, seconds, tokens/s); its last-token logits
         against the plain versions' and the routing flips between them; a
-        ServeEngine run of 4 requests (prompt 64, MOE_SERVE_MAX_NEW new
-        tokens, 4 slots) with exact launches, step p50 / p99, the idle
-        share of a warm step and the peak memory; decode_step against a
-        longer prefill at capacity factor MOE_ORACLE_CF."""
+        ServeEngine run of 4 requests (prompt MOE_SERVE_PROMPT,
+        MOE_SERVE_MAX_NEW new tokens, 4 slots) with exact launches, step
+        p50 / p99, the idle share of a warm step and the peak memory;
+        decode_step against a longer prefill at capacity factor
+        MOE_ORACLE_CF."""
         torch = self.torch
         import dataclasses
         import numpy as np
@@ -3986,7 +4019,8 @@ class Smoke:
         torch.cuda.empty_cache()
         # the main path, serving: counts from 0 just before, read just after
         eng = ServeEngine(model, n_slots=4, cache_len=256)
-        reqs = [Request(uid=i, prompt=rng.integers(0, vocab, 64),
+        reqs = [Request(uid=i, prompt=rng.integers(0, vocab,
+                                                    MOE_SERVE_PROMPT),
                         max_new=MOE_SERVE_MAX_NEW) for i in range(4)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4011,7 +4045,8 @@ class Smoke:
             launches[key] += served[key]
         steps = eng.step_seconds
         res["serve"] = {
-            "requests": 4, "prompt": 64, "max_new": MOE_SERVE_MAX_NEW,
+            "requests": 4, "prompt": MOE_SERVE_PROMPT,
+            "max_new": MOE_SERVE_MAX_NEW,
             "slots": 4, "cache_len": 256, "seconds": run_s,
             "decode_calls": calls, "ticks": len(steps),
             "step_p50_ms": float(np.percentile(steps, 50)) * 1e3,
@@ -4075,7 +4110,7 @@ class Smoke:
             "tok_embed", "segments.seg_00.0.we_g",
             "segments.seg_00.0.router")}
         n_params = sum(p.numel() for p in params.values())
-        check(n_params == 1_884_309_504,
+        check(n_params == 1_045_178_368,
               f"moe train: {n_params} parameters at {n} layers")
         state = train_state_init(params, tcfg)
         step = make_train_step(model, tcfg)
@@ -6163,11 +6198,14 @@ class Smoke:
         process's kernels-against-plain spread), and granite-3-2b's train
         step at full width (loss and grad norm per step within the same
         multiple of their spread), one error-feedback step on (pod 2,
-        model 2).  Every rank launches the flash, rmsnorm, swiglu and both
-        backward kernels on the main path, runs no plain backward, and gets
-        the same results.  The parent builds the kernels and runs the
-        one-process references (and their plain versions) alone first; a
-        rank that fails fails the phase."""
+        model 2).  Then the MoE parts on the same mesh, the experts split
+        over model (`_lm_mesh_moe_paths`: olmoe-1b-7b in f32 at 2 layers,
+        served at full depth in bf16 and trained at 2 layers; phi3.5-moe
+        at 2 layers prefilled and trained).  Every rank launches the
+        flash, rmsnorm, swiglu and both backward kernels on the main path,
+        runs no plain backward, and gets the same results.  The parent
+        builds the kernels and runs the one-process references (and their
+        plain versions) alone first; a rank that fails fails the phase."""
         import multiprocessing
         import pickle
         import socket
@@ -6206,7 +6244,8 @@ class Smoke:
                 with open(os.path.join(out_dir, f"{r}.pkl"), "rb") as f:
                     ranks.append(pickle.load(f))
         ranks_s = time.perf_counter() - t0
-        line = _lm_mesh_report(one, ranks, ranks_s, self.card)
+        line = _lm_mesh_report(one, ranks, ranks_s, self.card,
+                               self._routing_agree)
         self.path_launches["lm_mesh"] = line["launches"]
         emit(line)
         check(not line["failed"], f"lm_mesh: {line['failed']}")
@@ -6967,11 +7006,306 @@ def _lm_mesh_paths(mesh, pod, dev, seed: int, plain: bool = False,
         pipe, 1)
     torch.cuda.empty_cache()
     mark("ef")
+    res["moe"] = _lm_mesh_moe_paths(mesh, dev, seed, plain, calls, marks)
     return res
 
 
+def _lm_launches() -> dict:
+    """The language-model kernels' launch counts so far."""
+    from repro_torch.kernels import ops
+    return {"flash_attention": ops.FLASH_LAUNCHES,
+            "rmsnorm": ops.RMSNORM_LAUNCHES, "swiglu": ops.SWIGLU_LAUNCHES,
+            "rmsnorm_bwd": ops.RMSNORM_BWD_LAUNCHES,
+            "swiglu_bwd": ops.SWIGLU_BWD_LAUNCHES}
+
+
+def _lm_mesh_moe_paths(mesh, dev, seed: int, plain: bool = False,
+                       calls=None, marks=None) -> dict:
+    """The lm_mesh phase's MoE parts (LM_MESH_MOE_LAYERS' note) on `mesh`
+    (data 2, model 2), or in one process (None); `plain`: also one
+    process's plain versions (the bf16 prefills and train steps).  Each
+    part records its launches, seconds and peak memory; prefills record
+    every layer's routing of this rank's rows (CPU tensors)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import local_weights
+    b, s = LM_MESH_PREFILL_B, LM_MESH_PREFILL_S
+    res = {}
+
+    def begin():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return _lm_launches(), time.perf_counter()
+
+    def end(name, part, began):
+        torch.cuda.synchronize()
+        now = _lm_launches()
+        part["launches"] = {k: now[k] - began[0][k] for k in now}
+        part["seconds"] = time.perf_counter() - began[1]
+        part["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res[name] = part
+        torch.cuda.empty_cache()
+        if marks is not None:
+            marks[f"moe_{name}"] = time.perf_counter()
+
+    def prefill(model, toks, probs=False):
+        with _Routing(torch, probs=probs) as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = model.prefill({"tokens": toks})
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        del caches
+        return {"logits": logits.cpu(), "seconds": secs,
+                "rows": (0, b) if model.mp is None else model.mp.rows(b),
+                "routing": [{k: v.cpu() for k, v in c.items()}
+                            for c in rec.calls]}
+
+    base = get_arch("olmoe-1b-7b")
+    toks = np.random.default_rng(seed + 720).integers(0, base.vocab, (b, s))
+    # f32, full width, 2 layers: prefill and routing, the five impls on
+    # layer 0's weights, greedy tokens in both decode modes
+    began = begin()
+    cfg = base.replace(n_layers=LM_MESH_F32_LAYERS, dtype="float32",
+                       attn_impl="flash")
+    m = _lm_mesh_model(cfg, mesh, dev, seed + 720, zero3=False)
+    part = {"prefill": prefill(m, toks, probs=mesh is None), "impls": {}}
+    p0 = local_weights({n: t.detach() for n, t in
+                        m.segments["seg_00"][0].items()}, m.mp)
+    x = torch.randn((1, s, cfg.d_model), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed + 721))
+    with torch.inference_mode():
+        for impl in LM_MESH_MOE_IMPLS:
+            c = cfg.replace(moe=dataclasses.replace(cfg.moe, impl=impl))
+            part["impls"][impl] = moe_mod.moe_apply(p0, x, c, mp=m.mp).cpu()
+    part["tokens"] = {mode: _lm_mesh_engine(
+        m, mode, seed, sizes=LM_MESH_F32_SERVE)["tokens"]
+        for mode in ("tp", "cp")}
+    del m, p0, x
+    end("f32", part, began)
+    # bf16, full width and depth: the engine in "tp", a prefill
+    began = begin()
+    m = _lm_mesh_model(base.replace(attn_impl="flash"), mesh, dev,
+                       seed + 722, zero3=False)
+    part = {"serve": _lm_mesh_engine(
+        m, "tp", seed, calls,
+        sizes=(LM_MESH_REQUESTS, LM_MESH_PROMPT, LM_MESH_MOE_NEW)),
+            "prefill": prefill(m, toks)}
+    if plain:
+        m.backend = "plain"
+        part["prefill_plain"] = prefill(m, toks)
+    del m
+    end("serve", part, began)
+    # bf16 train steps at 2 layers, then one f32 step
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                       total_steps=LM_MESH_MOE_TRAIN_STEPS)
+    cfg = base.replace(n_layers=LM_MESH_MOE_LAYERS)
+    pipe = TokenPipeline(cfg.vocab, LM_MESH_MOE_TRAIN_BATCH,
+                         LM_MESH_TRAIN_SEQ, seed=seed)
+    began = begin()
+    end("train", _lm_mesh_train(_lm_mesh_model(cfg, mesh, dev, seed + 723),
+                                tcfg, pipe, LM_MESH_MOE_TRAIN_STEPS, calls),
+        began)
+    if plain:
+        res["train_plain"] = _lm_mesh_train(
+            _lm_mesh_model(cfg, mesh, dev, seed + 723, backend="plain"),
+            tcfg, pipe, LM_MESH_MOE_TRAIN_STEPS)
+        torch.cuda.empty_cache()
+    began = begin()
+    end("train_f32", _lm_mesh_train(_lm_mesh_model(
+        cfg.replace(dtype="float32"), mesh, dev, seed + 723), tcfg, pipe, 1),
+        began)
+    # phi3.5-moe at full width and 2 layers: a prefill, one train step
+    pcfg = get_arch("phi3.5-moe-42b-a6.6b").replace(
+        n_layers=LM_MESH_MOE_LAYERS)
+    ptoks = np.random.default_rng(seed + 724).integers(0, pcfg.vocab, (b, s))
+    began = begin()
+    m = _lm_mesh_model(pcfg.replace(attn_impl="flash"), mesh, dev,
+                       seed + 724, zero3=False)
+    part = {"prefill": prefill(m, ptoks)}
+    if plain:
+        m.backend = "plain"
+        part["prefill_plain"] = prefill(m, ptoks)
+    del m
+    end("phi_prefill", part, began)
+    ppipe = TokenPipeline(pcfg.vocab, b, s, seed=seed)
+    began = begin()
+    end("phi_train", _lm_mesh_train(
+        _lm_mesh_model(pcfg, mesh, dev, seed + 725), tcfg, ppipe, 1), began)
+    if plain:
+        res["phi_train_plain"] = _lm_mesh_train(
+            _lm_mesh_model(pcfg, mesh, dev, seed + 725, backend="plain"),
+            tcfg, ppipe, 1)
+        torch.cuda.empty_cache()
+    return res
+
+
+def _lm_mesh_moe_report(one: dict, ranks: list, verify,
+                        routing_agree) -> dict:
+    """The MoE parts of the lm_mesh line: one process's results (`one`)
+    against each rank's, by the bars of LM_MESH_MOE_LAYERS' note; a check
+    that fails goes to `verify`."""
+    import numpy as np
+    from types import SimpleNamespace
+    from repro_torch.configs import get_arch
+
+    def arr(t):
+        return np.asarray(t, dtype=np.float64)
+
+    def err(a, b):
+        return float(np.max(np.abs(arr(a) - arr(b))))
+
+    def routes(calls, rows=None):
+        lo, hi = rows or (None, None)
+        return SimpleNamespace(calls=[{k: v[lo:hi] for k, v in c.items()}
+                                      for c in calls])
+    base = get_arch("olmoe-1b-7b")
+    s = LM_MESH_PREFILL_S
+    checks, routing = {}, {}
+    # f32, 2 layers
+    o = one["f32"]
+    scale = max(1.0, float(np.abs(arr(o["prefill"]["logits"])).max()))
+    bar = LM_MESH_F32_RTOL * scale
+    checks["f32_bar"] = bar
+    verify(o["tokens"]["tp"] == o["tokens"]["cp"],
+           "lm_mesh moe: one process's f32 tokens, cp == tp")
+    for r in ranks:
+        got, name = r["paths"]["moe"], f"lm_mesh moe: rank {r['rank']}"
+        e = err(got["f32"]["prefill"]["logits"], o["prefill"]["logits"])
+        checks.setdefault("f32_prefill_logit_err", []).append(e)
+        verify(e <= bar, f"{name}'s f32 prefill logits {e} > {bar}")
+        ra = routing_agree(
+            f"lm_mesh f32 prefill, rank {r['rank']} vs one process",
+            base.replace(n_layers=LM_MESH_F32_LAYERS),
+            routes(got["f32"]["prefill"]["routing"]),
+            routes(o["prefill"]["routing"], got["f32"]["prefill"]["rows"]),
+            s)
+        routing.setdefault("f32", []).append(ra)
+        verify(ra["flip_margin_max"] < MOE_TIE_MARGIN
+               and ra["drops"] == ra["plain_drops"],
+               f"{name}'s f32 routing beyond a tie or drops differ: {ra}")
+        for impl, want in o["impls"].items():
+            ibar = LM_MESH_F32_RTOL * max(1.0, float(np.abs(arr(want)).max()))
+            e = err(got["f32"]["impls"][impl], want)
+            checks.setdefault("f32_impl_err", {}).setdefault(
+                impl, []).append(e)
+            verify(e <= ibar, f"{name}'s f32 {impl} {e} > {ibar}")
+        for mode in ("tp", "cp"):
+            verify(got["f32"]["tokens"][mode] == o["tokens"]["tp"],
+                   f"{name}'s f32 {mode} tokens == one process's")
+    # bf16, full depth: the prefill by the spread rule, routing flips
+    o = one["serve"]
+    spread = err(o["prefill"]["logits"], o["prefill_plain"]["logits"])
+    checks["serve_logit_spread"] = spread
+    r0 = ranks[0]["paths"]["moe"]
+    for r in ranks:
+        got, name = r["paths"]["moe"], f"lm_mesh moe: rank {r['rank']}"
+        e = err(got["serve"]["prefill"]["logits"], o["prefill"]["logits"])
+        checks.setdefault("serve_prefill_logit_err", []).append(e)
+        verify(e <= LM_MESH_SPREAD_X * spread,
+               f"{name}'s bf16 prefill logits {e} over {LM_MESH_SPREAD_X} x "
+               f"the plain spread {spread}")
+        ra = routing_agree(
+            f"lm_mesh bf16 prefill, rank {r['rank']} vs one process", base,
+            routes(got["serve"]["prefill"]["routing"]),
+            routes(o["prefill"]["routing"], got["serve"]["prefill"]["rows"]),
+            s)
+        routing.setdefault("bf16_flips_per_layer", []).append(ra["flips"])
+        verify(got["serve"]["serve"]["tokens"]
+               == r0["serve"]["serve"]["tokens"]
+               and np.array_equal(arr(got["serve"]["prefill"]["logits"]),
+                                  arr(r0["serve"]["prefill"]["logits"]))
+               and got["train"]["metrics"] == r0["train"]["metrics"]
+               and got["phi_train"]["metrics"] == r0["phi_train"]["metrics"],
+               f"{name}'s MoE results == rank 0's")
+    routing["bf16_one_process_kernels_vs_plain_flips_per_layer"] = \
+        routing_agree("lm_mesh bf16 prefill, one process, kernels vs plain",
+                      base, routes(o["prefill"]["routing"]),
+                      routes(o["prefill_plain"]["routing"]), s)["flips"]
+    checks["bf16_tokens_same_as_one_process"] = sum(
+        a == b for a, b in zip(r0["serve"]["serve"]["tokens"],
+                               o["serve"]["tokens"]))
+    # phi3.5-moe's prefill by the spread rule
+    o = one["phi_prefill"]
+    spread = err(o["prefill"]["logits"], o["prefill_plain"]["logits"])
+    e = err(r0["phi_prefill"]["prefill"]["logits"], o["prefill"]["logits"])
+    checks["phi_prefill_logit_spread_err"] = [spread, e]
+    verify(e <= LM_MESH_SPREAD_X * spread,
+           f"lm_mesh moe: phi3.5-moe prefill logits {e} over "
+           f"{LM_MESH_SPREAD_X} x the plain spread {spread}")
+    # the train steps by the spread rule, f32 by the relative bar
+    for key, plain in (("train", "train_plain"),
+                       ("phi_train", "phi_train_plain")):
+        om, pm = np.asarray(one[key]["metrics"]), \
+            np.asarray(one[plain]["metrics"])
+        mm = np.asarray(r0[key]["metrics"])
+        for i, what in enumerate(("loss", "grad_norm")):
+            sp = float(np.max(np.abs(om[:, i] - pm[:, i])))
+            e = float(np.max(np.abs(mm[:, i] - om[:, i])))
+            checks[f"{key}_{what}_spread_err"] = [sp, e]
+            verify(e <= LM_MESH_SPREAD_X * sp,
+                   f"lm_mesh moe: {key} {what} {e} over {LM_MESH_SPREAD_X} "
+                   f"x the plain spread {sp}")
+    f1 = np.asarray(one["train_f32"]["metrics"])
+    fm = np.asarray(r0["train_f32"]["metrics"])
+    checks["train_f32_rel_err_loss_gnorm"] = [
+        float(np.max(np.abs(fm[:, i] - f1[:, i]) / np.abs(f1[:, i])))
+        for i in range(2)]
+    verify(max(checks["train_f32_rel_err_loss_gnorm"]) <= LM_MESH_F32_RTOL,
+           f"lm_mesh moe: f32 loss and grad norm relative errors "
+           f"{checks['train_f32_rel_err_loss_gnorm']} over "
+           f"{LM_MESH_F32_RTOL}")
+    # every rank launched its kernels on every part of the path
+    need = {"f32": ("swiglu", "rmsnorm", "flash_attention"),
+            "serve": ("swiglu", "rmsnorm", "flash_attention"),
+            "train": ("swiglu", "swiglu_bwd", "rmsnorm", "rmsnorm_bwd"),
+            "train_f32": ("swiglu", "swiglu_bwd"),
+            "phi_prefill": ("swiglu", "flash_attention"),
+            "phi_train": ("swiglu", "swiglu_bwd")}
+    for r in ranks:
+        for part, kernels in need.items():
+            got = r["paths"]["moe"][part]["launches"]
+            verify(all(got[k] > 0 for k in kernels),
+                   f"lm_mesh moe: rank {r['rank']}'s {part} launched "
+                   f"{kernels}: {got}")
+
+    def row(res):
+        serve = res["serve"]["serve"]
+        return {
+            "ms_per_decode_call_tp": 1e3 * serve["seconds"]
+            / serve["decode_calls"],
+            "decode_calls": serve["decode_calls"],
+            "collectives_per_decode_call": serve.get("collectives"),
+            "prefill_s": {k: res[k]["prefill"]["seconds"]
+                          for k in ("f32", "serve", "phi_prefill")},
+            "train_step_s": {k: res[k]["step_s"]
+                             for k in ("train", "train_f32", "phi_train")},
+            "train_collectives_per_step": res["train"].get("collectives"),
+            "peak_gb": {k: res[k]["peak_bytes"] / 1e9 for k in (
+                "f32", "serve", "train", "train_f32", "phi_prefill",
+                "phi_train")},
+            "launches": {k: res[k]["launches"] for k in (
+                "f32", "serve", "train", "train_f32", "phi_prefill",
+                "phi_train")},
+            "seconds": {k: res[k]["seconds"] for k in (
+                "f32", "serve", "train", "train_f32", "phi_prefill",
+                "phi_train")}}
+    return {"checks": checks, "routing": routing,
+            "one_process": row(one),
+            "per_rank": [{"rank": r["rank"], **row(r["paths"]["moe"])}
+                         for r in ranks],
+            "train_metrics": {k: {"one_process": one[k]["metrics"],
+                                  "mesh": r0[k]["metrics"]}
+                              for k in ("train", "train_f32", "phi_train")},
+            "experts_a_rank": {"olmoe-1b-7b": 32, "phi3.5-moe": 8}}
+
+
 def _lm_mesh_report(one: dict, ranks: list, ranks_s: float,
-                    card: str) -> dict:
+                    card: str, routing_agree) -> dict:
     """The lm_mesh phase's line from one process's results (`one`) and
     each rank's: its checks, times and counts, and under "failed" every
     check that failed (the phase fails after printing it)."""
@@ -7077,6 +7411,7 @@ def _lm_mesh_report(one: dict, ranks: list, ranks_s: float,
                     res["train"].get("collectives"),
                 "serve_peak_gb": res["serve_peak_bytes"] / 1e9,
                 "train_peak_gb": res["train"]["peak_bytes"] / 1e9}
+    moe = _lm_mesh_moe_report(one["moe"], ranks, verify, routing_agree)
     return {"phase": "lm_mesh", "ranks": LM_MESH_RANKS,
             "mesh": {"serve_and_train": {"data": 2, "model": 2},
                      "error_feedback": {"pod": 2, "model": 2}},
@@ -7097,7 +7432,7 @@ def _lm_mesh_report(one: dict, ranks: list, ranks_s: float,
             "collectives": ranks[0]["collectives"],
             "grad_norms_step0_top": _leaf_norm_diffs(
                 one["train"]["leaf_norms"], r0["train"]["leaf_norms"]),
-            "ranks_wall_s": ranks_s, "launches": launches,
+            "moe": moe, "ranks_wall_s": ranks_s, "launches": launches,
             "failed": failed}
 
 
@@ -7123,13 +7458,14 @@ def _count_collectives() -> dict:
 
 def _lm_mesh_rank(rank: int, world: int, port: int, out_dir: str, seed: int,
                   go) -> None:
-    """One rank of the lm_mesh phase: `_lm_mesh_paths` on a (data 2,
-    model 2) mesh and a (pod 2, model 2) mesh of the `world` ranks sharing
-    the card, with its kernel launches counted from 0 just before and read
-    just after, its collectives counted, and any plain backward version
-    recorded; then a check of the swiglu kernel at qwen3-4b's per-rank
-    width (512, 4864).  Writes its results to out_dir/<rank>.pkl.  It
-    imports, then waits for `go` before it touches the card."""
+    """One rank of the lm_mesh phase: `_lm_mesh_paths` (its MoE parts
+    included) on a (data 2, model 2) mesh and a (pod 2, model 2) mesh of
+    the `world` ranks sharing the card, with its kernel launches counted
+    from 0 just before and read just after, its collectives counted, and
+    any plain backward version recorded; then a check of the swiglu
+    kernel at qwen3-4b's per-rank width (512, 4864).  Writes its results
+    to out_dir/<rank>.pkl.  It imports, then waits for `go` before it
+    touches the card."""
     import faulthandler
     import pickle
     import torch
@@ -7171,8 +7507,9 @@ def _lm_mesh_rank(rank: int, world: int, port: int, out_dir: str, seed: int,
     out["plain_backward"] = sorted(set(plain_bwd))
     out["marks_s"] = {k: v - t_go for k, v in marks.items()}
     out["collectives"] = {
-        "all_reduce SUM (f32) over model": "wo / wd partial sums "
-        "(reduce_from_model), copy_to_model's backward, CP decode's sum and "
+        "all_reduce SUM (f32) over model": "wo / wd partial sums and each "
+        "MoE layer's output, its experts' share (reduce_from_model), "
+        "copy_to_model's backward, CP decode's sum and "
         "weighted values, the vocabulary's sums of exponentials and gold "
         "logits",
         "all_reduce MAX over model": "CP decode's max, the loss's max",

@@ -421,21 +421,33 @@ class ModelMesh:
         """(the mean of every data rank's loss, each gradient's mean over
         the data ranks cut to this rank's block of `like[name]`'s
         placements, f32).  One all-reduce SUM a data axis over one f32
-        buffer (gloo has no reduce-scatter for CUDA tensors)."""
-        names = list(grads)
-        flat = torch.cat([loss.reshape(1).to(torch.float32)]
-                         + [grads[n].to(torch.float32).reshape(-1)
-                            for n in names])
-        flat = self._over_data(flat) / self.data_size
+        buffer (gloo has no reduce-scatter for CUDA tensors), filled leaf
+        by leaf: each gradient leaves `grads` (the caller's dict is
+        emptied) as it is copied in, so no leaf is held twice over and the
+        peak is the buffer and the gradients not yet copied (a rank's
+        experts of phi3.5-moe are 1.3 G gradients)."""
+        shapes = {n: g.shape for n, g in grads.items()}
+        flat = torch.empty(1 + sum(g.numel() for g in grads.values()),
+                           dtype=torch.float32, device=loss.device)
+        flat[0] = loss
+        at = 1
+        for n, shape in shapes.items():
+            k = math.prod(shape)
+            flat[at:at + k].copy_(grads.pop(n).reshape(-1))
+            at += k
+        flat = self._over_data(flat).div_(self.data_size)
         out, at = {}, 1
-        for n in names:
-            g = flat[at:at + grads[n].numel()].view(grads[n].shape)
-            at += grads[n].numel()
+        for n, shape in shapes.items():
+            k = math.prod(shape)
+            g = flat[at:at + k].view(shape)
+            at += k
             t = like[n]
+            # a copy, not a view: the buffer is freed on return
             out[n] = (shard_block(g, t.device_mesh, t.placements,
-                                  self.data_axes).contiguous()
-                      if is_dtensor(t) else g)
-        return flat[0], out
+                                  self.data_axes).clone(
+                memory_format=torch.contiguous_format)
+                if is_dtensor(t) else g)
+        return flat[0].clone(), out
 
     def _over_mesh(self, t: torch.Tensor, op) -> torch.Tensor:
         for md in range(self.mesh.ndim):

@@ -17,11 +17,11 @@ input with the rmsnorm kernel; the recurrent blocks' caches hold state,
 not keys and values.
 
 On a mesh (`mp`, a `distributed.shardings.ModelMesh`) the blocks run this
-rank's part: its heads (`models/attention.py`) and its columns of d_ff
-(`models/layers.mlp_apply`).  Only the `attn_mlp` kind runs on a model
-axis of more than one rank (`require_mesh_ported`); every kind runs on the
-data axes, whose parameters `run_stack_*` gather before a block runs
-(`local_weights`).
+rank's part: its heads (`models/attention.py`), its columns of d_ff
+(`models/layers.mlp_apply`) and its experts (`models/moe.py`).  Only the
+`attn_mlp` and `attn_moe` kinds run on a model axis of more than one rank
+(`require_mesh_ported`); every kind runs on the data axes, whose
+parameters `run_stack_*` gather before a block runs (`local_weights`).
 
 Where autograd records, `run_stack_train` rematerializes each block as
 `cfg.remat` says (the counterpart of the JAX package's `_remat_wrap`):
@@ -85,13 +85,15 @@ def require_ported(kind: str) -> None:
 
 
 # the kinds that run on a model axis of more than one rank
-MESH_KINDS = ("attn_mlp",)
+MESH_KINDS = ("attn_mlp", "attn_moe")
 
 
 def require_mesh_ported(cfg, mp) -> None:
     """Raise for what the language model's mesh does not run: a kind other
-    than `attn_mlp`, or a frontend, on a model axis of more than one rank,
-    and the dry run's levers (`seq_shard_acts`, `force_decode_mode`)."""
+    than `attn_mlp` and `attn_moe` (`mamba`, `shared_attn`, `mlstm`,
+    `slstm`, `enc_attn_mlp`, `dec_attn_mlp`), or a frontend, on a model
+    axis of more than one rank, and the dry run's levers (`seq_shard_acts`,
+    `force_decode_mode`)."""
     if mp is None:
         return
     what = []
@@ -106,8 +108,9 @@ def require_mesh_ported(cfg, mp) -> None:
             what.append(f"the {cfg.frontend} frontend")
     if what:
         raise NotImplementedError(
-            f"{', '.join(what)} on this mesh: queued after the dense "
-            "family's tensor parallelism (ROADMAP.md queue 1: multi-card)")
+            f"{', '.join(what)} on this mesh: queued after the dense and "
+            "MoE families' tensor parallelism (ROADMAP.md queue 1: "
+            "multi-card)")
 
 
 def local_weights(p, mp=None) -> dict:
@@ -184,24 +187,27 @@ def block_shapes(cfg, kind: str, dtype
     return out
 
 
-def init_block(gen: torch.Generator, cfg, kind: str, dtype
-               ) -> dict[str, torch.Tensor]:
+def init_block(gen: torch.Generator, cfg, kind: str, dtype):
+    """-> (name, tensor) pairs of one block, drawn from `gen` in the JAX
+    package's order, each only when asked for (the model keeps one before
+    the next is drawn: an expert leaf of phi3.5-moe is 1.68 GB in f32)."""
     require_ported(kind)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype,   # noqa: E731
                               device=gen.device)
+    yield "norm1", ones()
     if kind in _RECURRENT:
-        return {"norm1": ones(), **_RECURRENT[kind].init(gen, cfg, dtype)}
-    p = {"norm1": ones(), **attn.init_attention(gen, cfg, dtype)}
+        yield from _RECURRENT[kind].init(gen, cfg, dtype).items()
+        return
+    yield from attn.init_attention(gen, cfg, dtype).items()
     if kind == "dec_attn_mlp":
-        p["norm_x"] = ones()
-        p.update(attn.init_attention(gen, cfg, dtype, cross=True))
+        yield "norm_x", ones()
+        yield from attn.init_attention(gen, cfg, dtype, cross=True).items()
     if kind == "attn_moe":
-        p["norm2"] = ones()
-        p.update(moe_mod.init_moe(gen, cfg, dtype))
+        yield "norm2", ones()
+        yield from moe_mod.init_moe(gen, cfg, dtype)
     elif cfg.d_ff:
-        p["norm2"] = ones()
-        p.update(mlp_init(gen, cfg.d_model, cfg.d_ff, dtype))
-    return p
+        yield "norm2", ones()
+        yield from mlp_init(gen, cfg.d_model, cfg.d_ff, dtype).items()
 
 
 def _ffn(p, x, cfg, backend, mp=None):
@@ -213,7 +219,8 @@ def _ffn(p, x, cfg, backend, mp=None):
                              else None)
     if "router" in p:
         return x + moe_mod.moe_apply(
-            p, rmsnorm(x, p["norm2"], cfg.norm_eps, backend), cfg, backend)
+            p, rmsnorm(x, p["norm2"], cfg.norm_eps, backend), cfg, backend,
+            mp if mp is not None and mp.splits(cfg.moe.n_experts) else None)
     return x
 
 

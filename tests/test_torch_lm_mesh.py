@@ -13,6 +13,19 @@ granite-3-2b, f32, a (2, 4) mesh, B 4, cache 32) and of
 mesh models (`convert.lm_params_from_numpy(mesh=)`).  Neither the ranks
 nor this process import JAX.
 
+The MoE block (experts over `model`) rides the same spawn and subprocess:
+reduced(olmoe-1b-7b) from the JAX weights on (2, 4), one expert a rank
+(prefill, "tp" / "cp" decode and caches), and its sharded step on
+(2, 2, 2), at the JAX tests' bars; against the port's one process, the
+ranks in two groups of four (reduced olmoe and the narrow config of
+`tests/test_torch_moe.py`, E 64 top-8) on (2, 2) and (1, 4), every impl's
+prefill (logits 1e-5, routing and drops identical), greedy tokens, the
+capacity and ragged steps, error feedback, phi3.5-moe's reduced config,
+(1, 8) (the axis does not divide E: experts whole), the replicated leaves
+bit for bit equal over the model ranks after the steps, a (2, 2)
+checkpoint onto (1, 2) and one process, and the launchers' `--mesh
+single` for olmoe-1b-7b and phi3.5-moe.
+
 Bars.  Against the JAX package, its tests' own: CP and TP decode logits
 2e-3 and caches 1e-4 (also CP against TP), the sharded step's loss 1e-4
 and parameters 2e-4.  Against the port's one-process runs, in f32: greedy
@@ -23,6 +36,7 @@ parameter by up to two learning rates of AdamW's first steps), a resumed
 mesh run bit for bit the uninterrupted one, and every rank's results the
 same.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -69,8 +83,27 @@ SERVE_CASES = [
     ("qwen_cp_falls_back", "qwen3-4b", 0, (2, 4), ("data", "model"), True,
      "cp", 18),
 ]
-OTHER_KINDS = ["olmoe-1b-7b", "zamba2-7b", "xlstm-1.3b", "internvl2-2b",
+OTHER_KINDS = ["zamba2-7b", "xlstm-1.3b", "internvl2-2b",
                "seamless-m4t-medium"]
+# The MoE block with its experts over the model axis.  The eight ranks run
+# two (data, model) meshes of four side by side (a "rep" axis of 2 over
+# them): group 0 reduced(olmoe-1b-7b) (E 4, top-2), group 1 the narrow
+# config of tests/test_torch_moe.py (E 64, top-8), on (2, 2) and (1, 4) (at
+# (1, 4) each rank of group 0 holds one expert); then all eight ranks on
+# (1, 8), which does not divide E = 4 (every rank holds every expert).
+MOE_CONFIGS = ["reduced", "narrow"]
+MOE_MESHES = [(2, 2), (1, 4)]
+MOE_IMPLS = ["capacity", "gather", "hybrid", "dense", "ragged"]
+MOE_TRAIN_IMPLS = ["capacity", "ragged"]
+MOE_S = 12                          # prefill length
+MOE_SERVE = (3, 2, 3, 3)            # requests, slots, prompt, new tokens
+# the launchers' --mesh single on the production mesh cut to (2, 4)
+MOE_TRAIN_ARGV = ["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
+                  "--steps", "2", "--batch", "4", "--seq", "16",
+                  "--log-every", "100"]
+MOE_SERVE_ARGV = ["--arch", "phi3.5-moe", "--reduced", "--device", "cpu",
+                  "--requests", "2", "--slots", "2", "--prompt-len", "3",
+                  "--max-new", "2", "--cache-len", "16"]
 
 
 # ---------------------------------------------------------------- the JAX side
@@ -103,6 +136,11 @@ with shard_ctx(g_mesh), g_mesh:
     params = g_m.init(jax.random.key(0))
 toks = jnp.asarray(rng.integers(0, g_cfg.vocab, (4, 1)), jnp.int32)
 pos = jnp.asarray(rng.integers(4, 8, (4,)), jnp.int32)
+o_cfg = reduced(ARCHS["olmoe-1b-7b"]).replace(dtype="float32")
+o_m = build_model(o_cfg)
+with shard_ctx(g_mesh), g_mesh:
+    o_params = o_m.init(jax.random.key(1))
+o_toks = jnp.asarray(rng.integers(0, o_cfg.vocab, (4, 12)), jnp.int32)
 q_cfg = reduced(ARCHS["qwen3-4b"]).replace(dtype="float32")
 q_m = build_model(q_cfg)
 tcfg = TrainConfig()
@@ -111,6 +149,8 @@ batch = {k: jnp.asarray(v) for k, v in TokenPipeline(q_cfg.vocab, 8, 16,
 state0 = train_state_init(q_m.init(jax.random.key(0)), tcfg)
 put("granite/", params)
 put("qwen/", state0.params)
+put("olmoe/", o_params)
+out["moe_toks"] = np.asarray(o_toks)
 out["toks"], out["pos"] = np.asarray(toks), np.asarray(pos)
 out["tokens"], out["labels"] = np.asarray(batch["tokens"]), np.asarray(batch["labels"])
 save("{inputs}")
@@ -122,6 +162,16 @@ with shard_ctx(g_mesh), g_mesh:
 out["lg_tp"], out["lg_cp"] = np.asarray(lg_tp), np.asarray(lg_cp)
 put("cache_tp/", c_tp)
 put("cache_cp/", c_cp)
+# the MoE block, experts over the model axis: prefill, then TP and CP decode
+with shard_ctx(g_mesh), g_mesh:
+    o_lg, _ = o_m.prefill(o_params, {"tokens": o_toks})
+    o_caches = o_m.init_cache(4, 32)
+    o_tp, oc_tp = o_m.decode_step(o_params, o_caches, toks, pos, "tp")
+    o_cp, oc_cp = o_m.decode_step(o_params, o_caches, toks, pos, "cp")
+out["moe_prefill"] = np.asarray(o_lg)
+out["moe_lg_tp"], out["moe_lg_cp"] = np.asarray(o_tp), np.asarray(o_cp)
+put("moe_cache_tp/", oc_tp)
+put("moe_cache_cp/", oc_cp)
 # test_sharded_train_step_matches_single_device
 mesh = compat_mesh((2, 2, 2), ("pod", "data", "model"))
 with shard_ctx(mesh), mesh:
@@ -129,6 +179,11 @@ with shard_ctx(mesh), mesh:
     s_sh, met = jax.jit(make_train_step(q_m, tcfg))(state1, batch)
 out["train_loss"] = np.asarray(met["loss"])
 put("trained/", s_sh.params)
+with shard_ctx(mesh), mesh:
+    o_state = train_state_init(o_m.init(jax.random.key(1)), tcfg)
+    o_sh, o_met = jax.jit(make_train_step(o_m, tcfg))(o_state, batch)
+out["moe_train_loss"] = np.asarray(o_met["loss"])
+put("moe_trained/", o_sh.params)
 save("{path}")
 """
 
@@ -186,17 +241,23 @@ def _whole_caches(model, caches: dict, b: int, mode: str) -> dict:
     return out
 
 
-def _serve(model, mode: str, cache_len: int = 16):
-    """Five requests on three slots (recycling), prompt 5, 4 new tokens."""
+def _serve(model, mode: str, cache_len: int = 16, sizes=(5, 3, 5, 4)):
+    """`sizes` = (requests, slots, prompt, new tokens); by default five
+    requests on three slots (recycling), prompt 5, 4 new tokens."""
     from repro_torch.serving.engine import Request, ServeEngine
+    n, slots, prompt, new = sizes
     rng = np.random.default_rng(1)
-    eng = ServeEngine(model, n_slots=3, cache_len=cache_len, decode_mode=mode)
-    reqs = [Request(uid=i, prompt=rng.integers(0, model.cfg.vocab, 5),
-                    max_new=4) for i in range(5)]
+    eng = ServeEngine(model, n_slots=slots, cache_len=cache_len,
+                      decode_mode=mode)
+    reqs = [Request(uid=i, prompt=rng.integers(0, model.cfg.vocab, prompt),
+                    max_new=new) for i in range(n)]
     return sorted((r.uid, tuple(r.out)) for r in eng.run(reqs))
 
 
-def _train(model, tcfg, steps: int = STEPS):
+def _train(model, tcfg, steps: int = STEPS, states=None):
+    """`steps` steps of a pipeline of 8 x 16: each step's (loss, grad norm,
+    lr) and the parameters after them (JAX layout); the final state
+    appended to `states` if given."""
     from repro_torch.convert import train_state_to_numpy
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.training.step import make_train_step, train_state_init
@@ -208,8 +269,156 @@ def _train(model, tcfg, steps: int = STEPS):
     for i in range(steps):
         st, met = step(st, pipe.batch_at(i))
         mets.append([float(met[k]) for k in ("loss", "grad_norm", "lr")])
+    if states is not None:
+        states.append(st)
     return {"metrics": mets,
             "params": dict(_leaves(train_state_to_numpy(st).params))}
+
+
+def _moe_cfg(which: str, impl: str = "capacity"):
+    """reduced(olmoe-1b-7b), its narrow variant (E 64, top-8) or
+    reduced(phi3.5-moe), f32, with MoE impl `impl`."""
+    import dataclasses
+    cfg = _cfg("phi3.5-moe" if which == "phi" else "olmoe-1b-7b")
+    moe = dataclasses.replace(cfg.moe, impl=impl)
+    if which == "narrow":
+        moe = dataclasses.replace(moe, n_experts=64, top_k=8)
+    return cfg.replace(moe=moe)
+
+
+class _Routes:
+    """While active, the top-k ids of every call of the MoE router, in
+    layer order (numpy)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.module, self.router, self.calls = moe, moe._router, []
+
+        def recorded(p, x, cfg):
+            top_p, top_i = self.router(p, x, cfg)
+            self.calls.append(top_i.detach().numpy().copy())
+            return top_p, top_i
+        moe._router = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module._router = self.router
+        return False
+
+
+def _moe_batch(cfg):
+    return {"tokens": np.random.default_rng(2).integers(0, cfg.vocab,
+                                                        (B, MOE_S))}
+
+
+def _moe_forward(model, serve_modes=()) -> dict:
+    """The prefill's logits and every layer's routing (a mesh rank: of its
+    rows, `rows`), and the slot engine's greedy tokens in each mode of
+    `serve_modes` (`MOE_SERVE`)."""
+    with _Routes() as r:
+        logits = model.prefill(_moe_batch(model.cfg))[0].numpy()
+    rows = (0, B) if model.mp is None else model.mp.rows(B)
+    return {"prefill": logits, "routing": r.calls, "rows": rows,
+            "tokens": {mode: _serve(model, mode, sizes=MOE_SERVE)
+                       for mode in serve_modes}}
+
+
+def _replicated(params: dict) -> dict:
+    """name -> the bytes of this rank's block of each parameter that the
+    model axis does not split."""
+    out = {}
+    for n, t in params.items():
+        md = t.device_mesh.mesh_dim_names.index("model")
+        if t.placements[md].is_replicate():
+            out[n] = t.to_local().numpy().tobytes()
+    return out
+
+
+def _lm_mesh_moe(rank, mesh_of, ckpt_dir) -> dict:
+    """This rank's MoE cases against one process (`MOE_CONFIGS` x
+    `MOE_MESHES` in two groups of four ranks, then (1, 8)), and a (2, 2)
+    checkpoint restored onto (1, 2)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import TrainConfig
+    from repro_torch.convert import (
+        train_state_from_numpy, train_state_to_numpy,
+    )
+    from repro_torch.distributed.shardings import (
+        ShardCtx, Sharding, param_specs, shard_ctx,
+    )
+    from repro_torch.models import build_model
+
+    def sub(shape):     # this rank's (data, model) mesh of prod(shape)
+        rep = 8 // (shape[0] * shape[1])
+        return mesh_of((rep,) + shape, ("rep", "data", "model"))[
+            "data", "model"]
+
+    def on(cfg, mesh):
+        with shard_ctx(mesh):
+            return build_model(cfg, device="cpu", mesh=mesh).init(
+                torch.Generator().manual_seed(0))
+    tcfg = TrainConfig(warmup_steps=1, total_steps=4)
+    group = rank // 4
+    which = MOE_CONFIGS[group]
+    out = {"which": which, "fwd": {}, "train": {}, "replicated": {},
+           "coord": {}}
+    for shape in MOE_MESHES:
+        mesh = sub(shape)
+        out["coord"][shape] = mesh.get_coordinate()
+        for impl in MOE_IMPLS:
+            out["fwd"][shape, impl] = _moe_forward(
+                on(_moe_cfg(which, impl), mesh),
+                ("tp", "cp") if impl == "capacity" else ())
+        for impl in MOE_TRAIN_IMPLS:
+            states = []
+            out["train"][shape, impl] = _train(
+                on(_moe_cfg(which, impl), mesh), tcfg, states=states)
+            out["replicated"][shape, impl] = _replicated(states[0].params)
+            if (shape, impl) == ((2, 2), "capacity"):
+                trained = states[0]
+    # error feedback on (2, 2): each expert leaf's amax over the whole leaf
+    out["train_ef"] = _train(on(_moe_cfg(which), sub((2, 2))), TrainConfig(
+        warmup_steps=1, total_steps=4, compress_cross_pod=True))
+    # phi3.5-moe's reduced config on (2, 2): a prefill and a step
+    out["phi_fwd"] = _moe_forward(on(_moe_cfg("phi"), sub((2, 2))),
+                                  ("tp",))
+    out["phi_train"] = _train(on(_moe_cfg("phi"), sub((2, 2))), tcfg,
+                              steps=1)
+    # (1, 8) does not divide E = 4: the experts are whole on every rank
+    mesh = mesh_of((1, 8), ("data", "model"))
+    m8 = on(_moe_cfg("reduced"), mesh)
+    out["model8"] = {"fwd": _moe_forward(m8, ("cp",)), "experts": tuple(
+        m8.segments["seg_00"][0]["we_g"].to_local().shape)}
+    states = []
+    out["model8"]["train"] = _train(on(_moe_cfg("reduced"), mesh), tcfg,
+                                    states=states)
+    out["model8"]["replicated"] = _replicated(states[0].params)
+    # the trained (2, 2) capacity state saved, then restored onto (1, 2)
+    cfg = _moe_cfg(which)
+    mgr = CheckpointManager(os.path.join(ckpt_dir, f"moe_{group}"))
+    mgr.save(1, trained.params)
+    m12 = sub((1, 2))
+    with shard_ctx(m12):
+        mr = build_model(cfg, device="cpu", mesh=m12)
+    named = dict(mr.named_parameters())
+    specs = param_specs(named, ShardCtx(mesh=m12))
+    _, back = mgr.restore(
+        {n: trained.params[n] for n in named},
+        shardings={n: Sharding(m12, specs[n]) for n in named}, device="cpu")
+    with torch.no_grad():
+        for n, p in named.items():
+            p.to_local().copy_(back[n].to_local())
+    out["restored_1x2"] = mr.prefill(_moe_batch(cfg))[0].numpy()
+    # the same state through the JAX layout onto (1, 2)
+    tree = train_state_to_numpy(trained)
+    with shard_ctx(m12):
+        st12 = train_state_from_numpy(tree, cfg, device="cpu", mesh=m12)
+    out["from_numpy_1x2"] = all(
+        torch.equal(st12.params[n].to_local(), back[n].to_local())
+        and st12.params[n].placements == back[n].placements
+        and st12.opt.mu[n].placements == back[n].placements
+        for n in named)
+    return out
 
 
 def _lm_mesh_rank(rank, world, jax_npz, ckpt_dir):
@@ -259,6 +468,8 @@ def _lm_mesh_rank(rank, world, jax_npz, ckpt_dir):
         mm = on_mesh(_cfg(arch, vocab), mesh_of(shape, axes), zero3)
         out["train"][name] = _train(mm, tcfg)
 
+    out["moe"] = _lm_mesh_moe(rank, mesh_of, ckpt_dir)
+
     # -- other kinds and the dry run's levers raise on a model axis
     mesh = mesh_of((2, 4), ("data", "model"))
     out["raises"] = {}
@@ -302,6 +513,22 @@ def _lm_mesh_rank(rank, world, jax_npz, ckpt_dir):
         out[f"cache_{mode}"] = dict(_leaves(_whole_caches(m, caches, B,
                                                           mode)))
 
+    # -- the MoE block from the JAX weights on (2, 4): one expert a rank
+    cfg = _moe_cfg("reduced")
+    with shard_ctx(mesh):
+        mo = lm_params_from_numpy(_nest(jx, "olmoe/"), cfg, device="cpu",
+                                  mesh=mesh)
+    out["moe_experts"] = tuple(mo.segments["seg_00"][0]["we_g"]
+                               .to_local().shape)
+    out["moe_prefill"] = mo.prefill({"tokens": jx["moe_toks"]})[0].numpy()
+    for mode in ("tp", "cp"):
+        caches = mo.init_cache(B, CL, mode)
+        lg, caches = mo.decode_step(caches, jx["toks"], jx["pos"],
+                                    decode_mode=mode)
+        out[f"moe_lg_{mode}"] = lg.numpy()
+        out[f"moe_cache_{mode}"] = dict(_leaves(_whole_caches(
+            mo, caches, B, mode)))
+
     # -- the JAX test's sharded step on (2, 2, 2) from the JAX weights
     mesh = mesh_of((2, 2, 2), ("pod", "data", "model"))
     cfg = _cfg("qwen3-4b")
@@ -314,6 +541,15 @@ def _lm_mesh_rank(rank, world, jax_npz, ckpt_dir):
         st, {"tokens": jx["tokens"], "labels": jx["labels"]})
     out["train_loss"] = float(met["loss"])
     out["trained"] = dict(_leaves(train_state_to_numpy(st).params))
+    with shard_ctx(mesh):
+        mo = lm_params_from_numpy(_nest(jx, "olmoe/"), _moe_cfg("reduced"),
+                                  device="cpu", mesh=mesh)
+    so = train_state_init({n: p.detach() for n, p in
+                           mo.named_parameters()}, TrainConfig())
+    so, met = make_train_step(mo, TrainConfig())(
+        so, {"tokens": jx["tokens"], "labels": jx["labels"]})
+    out["moe_train_loss"] = float(met["loss"])
+    out["moe_trained"] = dict(_leaves(train_state_to_numpy(so).params))
     # the DTensor blocks through CheckpointManager.save / restore(shardings=)
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.distributed.shardings import (
@@ -341,6 +577,10 @@ def _lm_mesh_rank(rank, world, jax_npz, ckpt_dir):
         sorted((r.uid, tuple(r.out)) for r in serve_launch.main(
             serve_argv + ["--mesh", "single", "--decode-mode", mode]))
         for mode in ("tp", "cp")]
+    out["moe_launch"] = {
+        "train": train_launch.main(MOE_TRAIN_ARGV + ["--mesh", "single"]),
+        "serve": sorted((r.uid, tuple(r.out)) for r in serve_launch.main(
+            MOE_SERVE_ARGV + ["--mesh", "single"]))}
     train_argv = ["--arch", "granite-3-2b", "--reduced", "--device", "cpu",
                   "--steps", "4", "--batch", "4", "--seq", "16",
                   "--mesh", "single", "--log-every", "100"]
@@ -522,3 +762,280 @@ def test_train_launcher_mesh_single_and_resume_bitwise(runs):
         assert a[k].tobytes() == b[k].tobytes(), k
     assert json.dumps(whole.manifest(4)["leaves"]) == \
         json.dumps(cut.manifest(4)["leaves"])
+
+
+# ------------------------------------------- the MoE block on a model axis
+
+_ONE: dict = {}
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """One torch thread, as each rank runs: the suite's workers share the
+    machine's cores, and on a thread pool they oversubscribe a tiny
+    model's ops take many times as long."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _once(key, fn):
+    """fn() of one process's references, once a key, on one thread."""
+    if key not in _ONE:
+        with _one_thread():
+            _ONE[key] = fn()
+    return _ONE[key]
+
+
+def _moe_one(which: str, impl: str = "capacity") -> dict:
+    """One process's `_moe_forward` (both modes) of a config."""
+    from repro_torch.models import build_model
+
+    def run():
+        return _moe_forward(build_model(_moe_cfg(which, impl),
+                                        device="cpu").init(
+            torch.Generator().manual_seed(0)), ("tp", "cp"))
+    return _once(("forward", which, impl), run)
+
+
+def _moe_one_train(which: str, impl: str = "capacity", steps: int = STEPS,
+                   ef: bool = False):
+    """One process's `_train` of a config (error feedback if `ef`)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import build_model
+
+    def run():
+        return _train(build_model(_moe_cfg(which, impl), device="cpu").init(
+            torch.Generator().manual_seed(0)), TrainConfig(
+            warmup_steps=1, total_steps=4, compress_cross_pod=ef),
+            steps=steps)
+    return _once(("train", which, impl, steps, ef), run)
+
+
+def _moe_group(runs, which: str) -> list:
+    return [r["moe"] for r in runs["ranks"] if r["moe"]["which"] == which]
+
+
+def _drops(cfg, top_i: np.ndarray) -> list:
+    """Each row's (token, choice) pairs past their expert's capacity."""
+    from repro_torch.models import moe
+    ti = torch.from_numpy(top_i)
+    hit = moe._capacity_slots(torch.zeros(ti.shape), ti, cfg.moe.n_experts,
+                              moe.capacity(cfg, ti.shape[1]))[1]
+    return [int(ti[b].numel() - hit[b].sum()) for b in range(len(ti))]
+
+
+def _assert_forward(got: dict, want: dict, cfg) -> None:
+    """Logits within 1e-5, every layer's routing and drops of the rank's
+    rows identical, greedy tokens identical."""
+    lo, hi = got["rows"]
+    np.testing.assert_allclose(got["prefill"], want["prefill"], atol=TOL_F32)
+    assert len(got["routing"]) == len(want["routing"]) == cfg.n_layers
+    for a, b in zip(got["routing"], want["routing"]):
+        assert np.array_equal(a, b[lo:hi])
+        assert _drops(cfg, a) == _drops(cfg, b)[lo:hi]
+    for mode, tokens in got["tokens"].items():
+        assert tokens == want["tokens"][mode], mode
+
+
+def _assert_train(got: dict, want: dict, first: dict) -> None:
+    assert got["metrics"] == first["metrics"]
+    np.testing.assert_allclose(got["metrics"], want["metrics"], rtol=TOL_F32)
+    assert set(got["params"]) == set(want["params"])
+    for leaf, a in want["params"].items():
+        np.testing.assert_allclose(got["params"][leaf], a, atol=TOL_F32,
+                                   err_msg=leaf)
+
+
+def _assert_replicated_equal(blocks: list, coords: list) -> None:
+    """Ranks at one data coordinate hold bit-identical blocks of every
+    leaf the model axis does not split (the router and the norms among
+    them)."""
+    by_data: dict = {}
+    for b, c in zip(blocks, coords):
+        by_data.setdefault(c[0], []).append(b)
+    for same in by_data.values():
+        assert len(same) > 1
+        assert any(n.endswith(".router") for n in same[0])
+        assert any(n.endswith(".norm2") for n in same[0])
+        for b in same[1:]:
+            assert b.keys() == same[0].keys()
+            for n in b:
+                assert b[n] == same[0][n], n
+
+
+def test_moe_experts_split_over_model_equal_jax_prefill(runs):
+    """reduced(olmoe-1b-7b) on (2, 4): each rank holds one of the 4
+    experts (d split over data by ZeRO-3), and the prefill's logits equal
+    the JAX package's GSPMD run on the same weights."""
+    jx = runs["jax"]
+    for r in runs["ranks"]:
+        assert r["moe_experts"] == (1, 32, 128)
+        np.testing.assert_allclose(r["moe_prefill"], jx["moe_prefill"],
+                                   atol=2e-3)
+
+
+@pytest.mark.parametrize("mode", ["tp", "cp"])
+def test_moe_decode_logits_and_caches_equal_jax(runs, mode):
+    jx = runs["jax"]
+    for r in runs["ranks"]:
+        np.testing.assert_allclose(r[f"moe_lg_{mode}"], jx[f"moe_lg_{mode}"],
+                                   atol=2e-3)
+    caches = _nest(jx, f"moe_cache_{mode}/")
+    for name, want in _leaves(caches):
+        np.testing.assert_allclose(runs["ranks"][0][f"moe_cache_{mode}"][name],
+                                   want, atol=1e-4, err_msg=name)
+
+
+def test_moe_sharded_train_step_equals_jax(runs):
+    jx = runs["jax"]
+    trained = dict(_leaves(_nest(jx, "moe_trained/")))
+    for r in runs["ranks"]:
+        assert abs(r["moe_train_loss"] - float(jx["moe_train_loss"])) < 1e-4
+        assert set(r["moe_trained"]) == set(trained)
+        for name, want in trained.items():
+            np.testing.assert_allclose(r["moe_trained"][name], want,
+                                       atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("impl", MOE_IMPLS)
+@pytest.mark.parametrize("shape", MOE_MESHES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("which", MOE_CONFIGS)
+def test_moe_mesh_forward_equals_one_process(runs, which, shape, impl):
+    want = _moe_one(which, impl)
+    for got in _moe_group(runs, which):
+        _assert_forward(got["fwd"][shape, impl], want, _moe_cfg(which, impl))
+
+
+@pytest.mark.parametrize("impl", MOE_TRAIN_IMPLS)
+@pytest.mark.parametrize("shape", MOE_MESHES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("which", MOE_CONFIGS)
+def test_moe_mesh_train_steps_equal_one_process(runs, which, shape, impl):
+    want = _moe_one_train(which, impl)
+    group = _moe_group(runs, which)
+    for got in group:
+        _assert_train(got["train"][shape, impl], want,
+                      group[0]["train"][shape, impl])
+
+
+@pytest.mark.parametrize("impl", MOE_TRAIN_IMPLS)
+@pytest.mark.parametrize("shape", MOE_MESHES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("which", MOE_CONFIGS)
+def test_moe_replicated_leaves_bitwise_equal_over_model(runs, which, shape,
+                                                        impl):
+    """After the steps, the model ranks of each data coordinate hold the
+    same router, norms and every other leaf the model axis does not split,
+    bit for bit: the router's gradient sums every rank's experts."""
+    group = _moe_group(runs, which)
+    _assert_replicated_equal([g["replicated"][shape, impl] for g in group],
+                             [g["coord"][shape] for g in group])
+
+
+@pytest.mark.parametrize("which", MOE_CONFIGS)
+def test_moe_mesh_error_feedback_steps_equal_one_process(runs, which):
+    """The steps with error feedback on (2, 2): the int8 quantization
+    takes each expert leaf's amax over the whole leaf (both ranks'
+    experts), so loss and grad norm are one process's within 1e-5.  A
+    parameter whose gradient lies on a rounding boundary of the int8 code
+    may take the next code on the mesh (its f32 sums run in another
+    order), which moves it by at most two learning rates over AdamW's
+    first two steps: the narrow config's 1,048,576-element expert leaves
+    hold such an element (one, 3.8e-4 off), so the parameters' bar is two
+    learning rates."""
+    from repro_torch.configs import TrainConfig
+    want = _moe_one_train(which, ef=True)
+    lr = TrainConfig().learning_rate
+    group = _moe_group(runs, which)
+    for got in group:
+        got = got["train_ef"]
+        assert got["metrics"] == group[0]["train_ef"]["metrics"]
+        np.testing.assert_allclose(got["metrics"], want["metrics"],
+                                   rtol=TOL_F32)
+        for leaf, a in want["params"].items():
+            np.testing.assert_allclose(got["params"][leaf], a,
+                                       atol=2 * lr, err_msg=leaf)
+
+
+def test_moe_model_axis_not_dividing_experts_runs_them_whole(runs):
+    """(1, 8) does not divide E = 4: every rank holds all four experts and
+    its results equal one process's; after the steps every leaf, the
+    experts too, is bit for bit the same on the eight ranks."""
+    cfg = _moe_cfg("reduced")
+    want_train = _moe_one_train("reduced")
+    first = runs["ranks"][0]["moe"]["model8"]
+    for r in runs["ranks"]:
+        got = r["moe"]["model8"]
+        assert got["experts"] == (cfg.moe.n_experts, cfg.d_model, cfg.d_ff)
+        _assert_forward(got["fwd"], _moe_one("reduced"), cfg)
+        _assert_train(got["train"], want_train, first["train"])
+        assert any(n.endswith(".we_g") for n in got["replicated"])
+    _assert_replicated_equal(
+        [r["moe"]["model8"]["replicated"] for r in runs["ranks"]],
+        [(0, r["rank"]) for r in runs["ranks"]])
+
+
+def test_moe_phi_on_model_axis_equals_one_process(runs):
+    """reduced(phi3.5-moe) on (2, 2): prefill, routing, greedy tokens and
+    one step against one process."""
+    cfg = _moe_cfg("phi")
+    want = _moe_one("phi")
+    want_train = _moe_one_train("phi", steps=1)
+    first = runs["ranks"][0]["moe"]["phi_train"]
+    for r in runs["ranks"]:
+        _assert_forward(r["moe"]["phi_fwd"], want, cfg)
+        _assert_train(r["moe"]["phi_train"], want_train, first)
+
+
+@pytest.mark.parametrize("which", MOE_CONFIGS)
+def test_moe_checkpoint_restores_onto_smaller_mesh_and_one_process(runs,
+                                                                  which):
+    """A trained (2, 2) state saved by `CheckpointManager` (a collective
+    of its mesh), restored with `restore(shardings=)` onto (1, 2) and
+    without shardings into one process: the one-process parameters are
+    the mesh's trained ones bit for bit, both restored models' prefill
+    logits agree, and the state carried through the JAX layout
+    (`convert.train_state_from_numpy(mesh=)`) onto (1, 2) holds the same
+    blocks."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import _to_jax_layout
+    from repro_torch.models import build_model
+    cfg = _moe_cfg(which)
+    m = build_model(cfg, device="cpu")
+    named = dict(m.named_parameters())
+    mgr = CheckpointManager(str(runs["tmp"] / "ckpt" /
+                                f"moe_{MOE_CONFIGS.index(which)}"))
+    _, back = mgr.restore(named, device="cpu")
+    with torch.no_grad():
+        for n, p in named.items():
+            p.copy_(back[n])
+    with _one_thread():
+        want = m.prefill(_moe_batch(cfg))[0].numpy()
+    group = _moe_group(runs, which)
+    trained = group[0]["train"][(2, 2), "capacity"]["params"]
+    restored = dict(_leaves(_to_jax_layout(back)))
+    assert set(restored) == set(trained)
+    for leaf, a in trained.items():
+        assert restored[leaf].tobytes() == a.tobytes(), leaf
+    for got in group:
+        np.testing.assert_allclose(got["restored_1x2"], want, atol=TOL_F32)
+        assert got["from_numpy_1x2"]
+
+
+def test_launchers_mesh_single_run_moe(runs):
+    """`launch.train --arch olmoe-1b-7b --mesh single` and `launch.serve
+    --arch phi3.5-moe --mesh single` on (2, 4) (one expert a rank): the
+    final loss and the tokens of one process's launchers."""
+    from repro_torch.launch.serve import main as serve
+    from repro_torch.launch.train import main as train
+    with _one_thread():
+        loss = train(MOE_TRAIN_ARGV)
+        tokens = sorted((r.uid, tuple(r.out)) for r in serve(MOE_SERVE_ARGV))
+    for r in runs["ranks"]:
+        assert abs(r["moe_launch"]["train"] - loss) < TOL_F32
+        assert r["moe_launch"]["serve"] == tokens
