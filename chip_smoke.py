@@ -55,9 +55,12 @@ the language model's mesh: four ranks share the card on a (data 2,
 model 2) mesh; qwen3-4b served at full width and depth (the slot engine in
 decode modes "tp" and "cp", and a prefill through the flash kernel on each
 rank's heads) and granite-3-2b's tensor- and data-parallel train step at
-full width, and the MoE family with its experts split over the model axis
+full width, the MoE family with its experts split over the model axis
 (olmoe-1b-7b served at full depth and trained, phi3.5-moe prefilled and
-trained, the swiglu kernels on each rank's experts), each held to one
+trained, the swiglu kernels on each rank's experts), and the hybrid
+family with zamba2-7b's Mamba2 heads and its shared attention block split
+over the model axis (served at full depth, prefilled and trained at 12
+layers, the flash kernel on 16 heads of 112 a rank), each held to one
 process's run on the card.
 `--phases serve` or `examples` alone trains the
 retrieval index first; `--phases cluster`, `ha`, `serve_clusters`,
@@ -119,10 +122,11 @@ BP_N = 2**18
 # The multi-process cluster over the paper's §4 data, cut from 2^20 points
 # for time (16 epochs of Pb = 2048 over 4 worker processes; 2^17 points
 # until the hybrid and xlstm phases came in, 2^16 until the dryrun phase
-# came in: the phase 73.5-77.5 s on an H100 80GB HBM3 at 700 W); its chaos
-# run and the HA run take 2^15 points (16 epochs), the telemetry check's
-# six fused passes 2^14 (8 epochs).
-CLUSTER_N = 2**15
+# came in: the phase 73.5-77.5 s on an H100 80GB HBM3 at 700 W; 2^15
+# until the lm_mesh phase's hybrid parts came in); its chaos run and the
+# HA run take 2^15 points (16 epochs), the telemetry check's six fused
+# passes 2^14 (8 epochs).
+CLUSTER_N = 2**14
 CLUSTER_SMALL_N = 2**15
 TELEMETRY_N = 2**14
 # The reference's limit on telemetry's cost (benchmarks/occ_engine.py,
@@ -168,9 +172,10 @@ BF16_LOGIT_TOL = 0.05
 # 128 when the hybrid and xlstm phases came in, with the prompt from 64:
 # the engine prefills a prompt token by token, and from 64 when the mesh
 # phase came in: each decode call is dispatched from the host; the prompt
-# from 32 to 16 when the lm_mesh phase came in, the ticks kept).
+# from 32 to 16 when the lm_mesh phase came in, and to 4 when its hybrid
+# parts came in, the ticks kept).
 SERVE_MAX_NEW = 32
-SERVE_PROMPT = 16
+SERVE_PROMPT = 4
 # The train-while-serve pipeline: points streamed per tenant (the paper's
 # Pb = 2048, 32 epochs each) and the QoS A/B tenant's stream.
 SC_N = 2**16
@@ -225,8 +230,8 @@ MOE_TIE_MARGIN = 1e-6
 # Full depth, bf16: a MOE_PREFILL_BATCH x TRAIN_SEQ (4 x 4096) prefill,
 # then 4 requests of prompt MOE_SERVE_PROMPT and MOE_SERVE_MAX_NEW new
 # tokens on 4 slots (the prompt cut from 64 to 16 when the lm_mesh phase's
-# MoE parts came in: the engine prefills token by token, one decode call
-# a prompt token).  Last-token logits of two routes
+# MoE parts came in, to 4 when its hybrid parts came in: the engine
+# prefills token by token, one decode call a prompt token).  Last-token logits of two routes
 # (kernels against plain versions; decode_step after a prefill against one
 # longer prefill) agree within this fraction of max |logit|: the bf16
 # roundings of BF16_LOGIT_TOL's reasoning over 16 layers (qwen3-4b's bar of
@@ -240,7 +245,7 @@ MOE_TIE_MARGIN = 1e-6
 # reference's design.
 MOE_BF16_LOGIT_TOL = 0.1
 MOE_PREFILL_BATCH = 4
-MOE_SERVE_PROMPT = 16
+MOE_SERVE_PROMPT = 4
 MOE_SERVE_MAX_NEW = 16     # cut from 64 (hybrid phase), 32 (mesh phase)
 # Training olmoe at full width and MOE_TRAIN_LAYERS of its 16 layers (its
 # 12 bytes a parameter at full depth, 83 GB, exceed the card; cut from 8
@@ -290,7 +295,8 @@ REC_F32_GRAD_TOL = {"hybrid": 1e-3, "xlstm": 1e-3}
 # requests of prompt REC_SERVE_PROMPT and REC_SERVE_MAX_NEW new tokens on
 # 4 slots (both cut from 64 when the frontends phase came in, the new
 # tokens to 16 when the mesh phase came in, the prompt to 16 when the
-# lm_mesh phase came in: the engine dispatches each decode call from the
+# lm_mesh phase came in and to 4 when its hybrid parts came in, which
+# serve zamba2-7b too: the engine dispatches each decode call from the
 # host, 45-102 ms a call).
 # Last-token logits of two routes (kernels against plain versions;
 # decode_step after a prefill against one longer prefill) agree within
@@ -329,7 +335,7 @@ REC_COMPARE = (2, 1024)
 # takes 8.8 s under the profiler, an eighth of them the same work; 1024
 # until the mesh phase came in).
 REC_PROFILE_XLSTM = 512
-REC_SERVE_PROMPT = 16
+REC_SERVE_PROMPT = 4
 REC_SERVE_MAX_NEW = 16
 # (c) Training at full width: zamba2 at REC_TRAIN_LAYERS layers (12 bytes
 # a parameter: 81 GB at 81 layers; 12 layers are two segments of six and
@@ -344,6 +350,9 @@ REC_SERVE_MAX_NEW = 16
 # idle; 4 x 1024 4.4 s, 92 % idle; on an H100 80GB HBM3 at 700 W).  Cut
 # from 1024 to 512 (two chunks of 256) when the mesh phase came in;
 # REC_TRAIN_STEPS from 4 to 3 when the lm_mesh phase's MoE parts came in.
+# zamba2's sequence stays 4096: at 4 x 2048 its grad norm at step 2 was
+# 2.0 % from the plain run's (100.21 against 102.27), past TRAIN_GNORM_TOL
+# (on an H100 80GB HBM3 at 700 W).
 REC_TRAIN_LAYERS = {"hybrid": 12, "xlstm": 8}
 REC_TRAIN_BATCH = 4
 REC_TRAIN_SEQ = {"hybrid": 4096, "xlstm": 512}
@@ -379,11 +388,11 @@ FE_F32_SEQ = 512
 # `_rec_agree` holds them (BF16_LOGIT_TOL, or REC_FLOOR_MUL times the bf16
 # run's own distance from f32); a ServeEngine run of 4 requests of prompt
 # FE_SERVE_PROMPT and FE_SERVE_MAX_NEW new tokens on 4 slots (the new
-# tokens cut from 32 when the mesh phase came in, the prompt from 32 when
-# the lm_mesh phase came in).
+# tokens cut from 32 when the mesh phase came in, the prompt from 32 to 16
+# when the lm_mesh phase came in and to 4 when its hybrid parts came in).
 FE_TICKS = 32
 FE_COMPARE = (2, 1024)
-FE_SERVE_PROMPT = 16
+FE_SERVE_PROMPT = 4
 FE_SERVE_MAX_NEW = 16
 # (c) Training at full width: internvl2 at FE_TRAIN_LAYERS of its 24
 # layers, seamless at its full 12 + 12; bf16, remat "full", chunked
@@ -433,7 +442,9 @@ MESH_TIMEOUT_S = 300
 # the engine runs were cut from 4 requests of prompt 16 (72 calls a mode,
 # the phase 140 s) to 2 of prompt 8 (24 calls, 88 s alone, 82.5 s in a
 # full run of 980 s), then to prompt 4 and 8 new (16 calls) and, when the
-# MoE parts came in, to 4 new (12 calls; the MoE engine keeps 8).  granite-3-2b trained at
+# MoE parts came in, to 4 new (12 calls; the MoE engine keeps 8), and when
+# the hybrid parts came in to prompt 2 (8 calls; f32 (2, 2, 4), 12 calls
+# down to 8).  granite-3-2b trained at
 # full width and LM_MESH_TRAIN_LAYERS of its 40 layers, bf16,
 # LM_MESH_TRAIN_BATCH x LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_STEPS steps, and one
 # error-feedback step on (pod 2, model 2); and in f32 at full width and
@@ -450,9 +461,9 @@ LM_MESH_RANKS = 4
 LM_MESH_F32_LAYERS = 2
 LM_MESH_SLOTS = 4
 LM_MESH_REQUESTS = 2
-LM_MESH_PROMPT = 4
+LM_MESH_PROMPT = 2
 LM_MESH_NEW = 4              # cut from 8 when the MoE parts came in
-LM_MESH_F32_SERVE = (2, 4, 4)
+LM_MESH_F32_SERVE = (2, 2, 4)
 LM_MESH_CACHE = 64
 LM_MESH_PREFILL_B = 2
 LM_MESH_PREFILL_S = 512
@@ -486,6 +497,31 @@ LM_MESH_MOE_LAYERS = 2
 LM_MESH_MOE_TRAIN_BATCH = 2
 LM_MESH_MOE_TRAIN_STEPS = 2
 LM_MESH_MOE_IMPLS = ("capacity", "gather", "hybrid", "dense", "ragged")
+# The lm_mesh phase's hybrid parts, in the same spawn and on the same
+# (data 2, model 2) mesh: zamba2-7b's 112 Mamba2 heads 56 a rank and its
+# shared attention and MLP block's 32 heads of 112 and d_ff 14336 split
+# in two.  At full width and LM_MESH_HYB_LAYERS layers (two segments of six
+# Mamba2 layers, two uses of the shared block) in f32: a LM_MESH_PREFILL_B
+# x LM_MESH_PREFILL_S prefill, the engine's greedy tokens (LM_MESH_F32_SERVE)
+# in "tp" and "cp" identical to one process's, and one train step
+# (LM_MESH_HYB_TRAIN_BATCH x LM_MESH_TRAIN_SEQ).  The f32 prefill's logits,
+# and the step's loss and grad norm, are held to one process's within the
+# larger of LM_MESH_F32_RTOL (relative; of max(1, max |logit|) for the
+# logits) and the spread rule on one process's f32 kernels-against-plain
+# spread: the Mamba2 blocks amplify f32 rounding, so the mesh's other
+# summation orders (each tensor-parallel product's, cuBLAS's choice of
+# algorithm for a rank's half of a product) moved the logits by 2.1e-4 of
+# their largest and the grad norm by 1.07e-4 (relative) at 12 layers (on
+# an H100 80GB HBM3 at 700 W: 4.1x and 1.8x one process's own
+# kernels-against-plain spread; `tests/test_torch_lm_mesh.py` holds the
+# same blocks to one process on the CPU at a reduced size); at full width
+# and depth in bf16, served in "tp" (the engine's LM_MESH_REQUESTS requests of
+# LM_MESH_PROMPT + LM_MESH_NEW tokens) and a prefill, held to one
+# process's by the spread rule (LM_MESH_SPREAD_X); trained at
+# LM_MESH_HYB_LAYERS layers in bf16 (LM_MESH_HYB_TRAIN_BATCH x
+# LM_MESH_TRAIN_SEQ, LM_MESH_TRAIN_STEPS steps) by the spread rule.
+LM_MESH_HYB_LAYERS = 12
+LM_MESH_HYB_TRAIN_BATCH = 2
 
 
 def emit(obj) -> None:
@@ -6201,7 +6237,11 @@ class Smoke:
         model 2).  Then the MoE parts on the same mesh, the experts split
         over model (`_lm_mesh_moe_paths`: olmoe-1b-7b in f32 at 2 layers,
         served at full depth in bf16 and trained at 2 layers; phi3.5-moe
-        at 2 layers prefilled and trained).  Every rank launches the
+        at 2 layers prefilled and trained), and the hybrid parts, the
+        Mamba2 heads and the shared block split over model
+        (`_lm_mesh_hybrid_paths`: zamba2-7b in f32 at 12 layers prefilled,
+        served and stepped; served and prefilled at full depth in bf16;
+        trained at 12 layers).  Every rank launches the
         flash, rmsnorm, swiglu and both backward kernels on the main path,
         runs no plain backward, and gets the same results.  The parent
         builds the kernels and runs the one-process references (and their
@@ -7007,6 +7047,8 @@ def _lm_mesh_paths(mesh, pod, dev, seed: int, plain: bool = False,
     torch.cuda.empty_cache()
     mark("ef")
     res["moe"] = _lm_mesh_moe_paths(mesh, dev, seed, plain, calls, marks)
+    res["hybrid"] = _lm_mesh_hybrid_paths(mesh, dev, seed, plain, calls,
+                                          marks)
     return res
 
 
@@ -7017,6 +7059,119 @@ def _lm_launches() -> dict:
             "rmsnorm": ops.RMSNORM_LAUNCHES, "swiglu": ops.SWIGLU_LAUNCHES,
             "rmsnorm_bwd": ops.RMSNORM_BWD_LAUNCHES,
             "swiglu_bwd": ops.SWIGLU_BWD_LAUNCHES}
+
+
+class _Parts:
+    """The lm_mesh phase's parts, one after another: each part's launches,
+    seconds and peak memory go into `res[name]` with the part's own
+    results, and `marks[prefix + name]` gets the time at its end."""
+
+    def __init__(self, res: dict, marks, prefix: str):
+        import torch
+        self.torch, self.res, self.marks, self.prefix = torch, res, marks, \
+            prefix
+
+    def begin(self):
+        self.torch.cuda.synchronize()
+        self.torch.cuda.reset_peak_memory_stats()
+        return _lm_launches(), time.perf_counter()
+
+    def end(self, name: str, part: dict, began) -> None:
+        torch = self.torch
+        torch.cuda.synchronize()
+        now = _lm_launches()
+        part["launches"] = {k: now[k] - began[0][k] for k in now}
+        part["seconds"] = time.perf_counter() - began[1]
+        part["peak_bytes"] = torch.cuda.max_memory_allocated()
+        self.res[name] = part
+        torch.cuda.empty_cache()
+        if self.marks is not None:
+            self.marks[self.prefix + name] = time.perf_counter()
+
+
+def _lm_mesh_hybrid_paths(mesh, dev, seed: int, plain: bool = False,
+                          calls=None, marks=None) -> dict:
+    """The lm_mesh phase's hybrid parts (LM_MESH_HYB_LAYERS' note) on
+    `mesh` (data 2, model 2), or in one process (None); `plain`: also one
+    process's plain versions (the prefills and train steps, f32 and
+    bf16).  Each
+    part records its launches, seconds and peak memory; the bf16 engine
+    run also its launches a decode call."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    b, s = LM_MESH_PREFILL_B, LM_MESH_PREFILL_S
+    res = {}
+    parts = _Parts(res, marks, "hybrid_")
+
+    def prefill(model, toks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill({"tokens": toks})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        del caches
+        return {"logits": logits.cpu(), "seconds": secs}
+
+    base = get_arch("zamba2-7b")
+    toks = np.random.default_rng(seed + 740).integers(0, base.vocab, (b, s))
+    cfg = base.replace(n_layers=LM_MESH_HYB_LAYERS)
+    pipe = TokenPipeline(cfg.vocab, LM_MESH_HYB_TRAIN_BATCH,
+                         LM_MESH_TRAIN_SEQ, seed=seed)
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                       total_steps=LM_MESH_TRAIN_STEPS)
+    # f32, full width, 12 layers: a prefill, greedy tokens in both modes,
+    # one train step
+    began = parts.begin()
+    m = _lm_mesh_model(cfg.replace(dtype="float32", attn_impl="flash"), mesh,
+                       dev, seed + 740, zero3=False)
+    part = {"prefill": prefill(m, toks), "tokens": {
+        mode: _lm_mesh_engine(m, mode, seed, sizes=LM_MESH_F32_SERVE)[
+            "tokens"] for mode in ("tp", "cp")}}
+    if plain:
+        m.backend = "plain"
+        part["prefill_plain"] = prefill(m, toks)
+    del m
+    parts.end("f32", part, began)
+    began = parts.begin()
+    # ZeRO-3 off: no gathers of the f32 weights over data before the step
+    # (the bf16 steps below keep ZeRO-3)
+    parts.end("train_f32", _lm_mesh_train(_lm_mesh_model(
+        cfg.replace(dtype="float32"), mesh, dev, seed + 741, zero3=False),
+        tcfg, pipe, 1), began)
+    if plain:
+        res["train_f32_plain"] = _lm_mesh_train(_lm_mesh_model(
+            cfg.replace(dtype="float32"), mesh, dev, seed + 741, zero3=False,
+            backend="plain"), tcfg, pipe, 1)
+        torch.cuda.empty_cache()
+    # bf16, full width and depth: the engine in "tp", a prefill
+    began = parts.begin()
+    m = _lm_mesh_model(base.replace(attn_impl="flash"), mesh, dev,
+                       seed + 742, zero3=False)
+    before = _lm_launches()
+    part = {"serve": _lm_mesh_engine(m, "tp", seed, calls)}
+    now = _lm_launches()
+    part["serve"]["launches_per_call"] = {
+        k: (now[k] - before[k]) / part["serve"]["decode_calls"] for k in now}
+    part["prefill"] = prefill(m, toks)
+    if plain:
+        m.backend = "plain"
+        part["prefill_plain"] = prefill(m, toks)
+    del m
+    parts.end("serve", part, began)
+    # bf16 train steps at 12 layers
+    began = parts.begin()
+    parts.end("train", _lm_mesh_train(_lm_mesh_model(cfg, mesh, dev,
+                                                     seed + 743),
+                                      tcfg, pipe, LM_MESH_TRAIN_STEPS, calls),
+              began)
+    if plain:
+        res["train_plain"] = _lm_mesh_train(
+            _lm_mesh_model(cfg, mesh, dev, seed + 743, backend="plain"),
+            tcfg, pipe, LM_MESH_TRAIN_STEPS)
+        torch.cuda.empty_cache()
+    return res
 
 
 def _lm_mesh_moe_paths(mesh, dev, seed: int, plain: bool = False,
@@ -7035,22 +7190,8 @@ def _lm_mesh_moe_paths(mesh, dev, seed: int, plain: bool = False,
     from repro_torch.models.transformer import local_weights
     b, s = LM_MESH_PREFILL_B, LM_MESH_PREFILL_S
     res = {}
-
-    def begin():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        return _lm_launches(), time.perf_counter()
-
-    def end(name, part, began):
-        torch.cuda.synchronize()
-        now = _lm_launches()
-        part["launches"] = {k: now[k] - began[0][k] for k in now}
-        part["seconds"] = time.perf_counter() - began[1]
-        part["peak_bytes"] = torch.cuda.max_memory_allocated()
-        res[name] = part
-        torch.cuda.empty_cache()
-        if marks is not None:
-            marks[f"moe_{name}"] = time.perf_counter()
+    parts = _Parts(res, marks, "moe_")
+    begin, end = parts.begin, parts.end
 
     def prefill(model, toks, probs=False):
         with _Routing(torch, probs=probs) as rec:
@@ -7304,6 +7445,112 @@ def _lm_mesh_moe_report(one: dict, ranks: list, verify,
             "experts_a_rank": {"olmoe-1b-7b": 32, "phi3.5-moe": 8}}
 
 
+def _lm_mesh_hybrid_report(one: dict, ranks: list, verify) -> dict:
+    """The hybrid parts of the lm_mesh line: one process's results (`one`)
+    against each rank's, by the bars of LM_MESH_HYB_LAYERS' note; a check
+    that fails goes to `verify`."""
+    import numpy as np
+
+    def arr(t):
+        return np.asarray(t, dtype=np.float64)
+
+    def err(a, b):
+        return float(np.max(np.abs(arr(a) - arr(b))))
+    checks = {}
+    o = one["f32"]
+    spread = err(o["prefill"]["logits"], o["prefill_plain"]["logits"])
+    bar = max(LM_MESH_F32_RTOL * max(1.0, float(np.abs(arr(
+        o["prefill"]["logits"])).max())), LM_MESH_SPREAD_X * spread)
+    checks["f32_prefill_spread_bar"] = [spread, bar]
+    verify(o["tokens"]["tp"] == o["tokens"]["cp"],
+           "lm_mesh hybrid: one process's f32 tokens, cp == tp")
+    r0 = ranks[0]["paths"]["hybrid"]
+    for r in ranks:
+        got, name = r["paths"]["hybrid"], f"lm_mesh hybrid: rank {r['rank']}"
+        e = err(got["f32"]["prefill"]["logits"], o["prefill"]["logits"])
+        checks.setdefault("f32_prefill_logit_err", []).append(e)
+        verify(e <= bar, f"{name}'s f32 prefill logits {e} > {bar}")
+        for mode in ("tp", "cp"):
+            verify(got["f32"]["tokens"][mode] == o["tokens"]["tp"],
+                   f"{name}'s f32 {mode} tokens == one process's")
+        verify(got["serve"]["serve"]["tokens"]
+               == r0["serve"]["serve"]["tokens"]
+               and np.array_equal(arr(got["serve"]["prefill"]["logits"]),
+                                  arr(r0["serve"]["prefill"]["logits"]))
+               and got["train"]["metrics"] == r0["train"]["metrics"]
+               and got["train_f32"]["metrics"] == r0["train_f32"]["metrics"],
+               f"{name}'s hybrid results == rank 0's")
+    o = one["serve"]
+    spread = err(o["prefill"]["logits"], o["prefill_plain"]["logits"])
+    e = err(r0["serve"]["prefill"]["logits"], o["prefill"]["logits"])
+    checks["bf16_prefill_logit_spread_err"] = [spread, e]
+    verify(e <= LM_MESH_SPREAD_X * spread,
+           f"lm_mesh hybrid: bf16 prefill logits {e} over "
+           f"{LM_MESH_SPREAD_X} x the plain spread {spread}")
+    checks["bf16_tokens_same_as_one_process"] = sum(
+        a == b for a, b in zip(r0["serve"]["serve"]["tokens"],
+                               o["serve"]["tokens"]))
+    om, pm = np.asarray(one["train"]["metrics"]), \
+        np.asarray(one["train_plain"]["metrics"])
+    mm = np.asarray(r0["train"]["metrics"])
+    for i, what in enumerate(("loss", "grad_norm")):
+        sp = float(np.max(np.abs(om[:, i] - pm[:, i])))
+        e = float(np.max(np.abs(mm[:, i] - om[:, i])))
+        checks[f"train_{what}_spread_err"] = [sp, e]
+        verify(e <= LM_MESH_SPREAD_X * sp,
+               f"lm_mesh hybrid: train {what} {e} over {LM_MESH_SPREAD_X} "
+               f"x the plain spread {sp}")
+    f1 = np.asarray(one["train_f32"]["metrics"])
+    fp = np.asarray(one["train_f32_plain"]["metrics"])
+    fm = np.asarray(r0["train_f32"]["metrics"])
+    for i, what in enumerate(("loss", "grad_norm")):
+        sp = float(np.max(np.abs(f1[:, i] - fp[:, i])))
+        e = float(np.max(np.abs(fm[:, i] - f1[:, i])))
+        bar = max(LM_MESH_F32_RTOL * float(np.max(np.abs(f1[:, i]))),
+                  LM_MESH_SPREAD_X * sp)
+        checks[f"train_f32_{what}_spread_err_bar"] = [sp, e, bar]
+        verify(e <= bar, f"lm_mesh hybrid: f32 train {what} {e} over "
+               f"{bar} (the larger of {LM_MESH_F32_RTOL} relative and "
+               f"{LM_MESH_SPREAD_X} x the plain spread {sp})")
+    # every rank launched its kernels on every part of the path
+    need = {"f32": ("rmsnorm", "flash_attention", "swiglu"),
+            "serve": ("rmsnorm", "flash_attention", "swiglu"),
+            "train": ("rmsnorm", "rmsnorm_bwd", "swiglu", "swiglu_bwd"),
+            "train_f32": ("swiglu", "swiglu_bwd")}
+    for r in ranks:
+        for part, kernels in need.items():
+            got = r["paths"]["hybrid"][part]["launches"]
+            verify(all(got[k] > 0 for k in kernels),
+                   f"lm_mesh hybrid: rank {r['rank']}'s {part} launched "
+                   f"{kernels}: {got}")
+    parts = ("f32", "train_f32", "serve", "train")
+
+    def row(res):
+        serve = res["serve"]["serve"]
+        return {
+            "ms_per_decode_call_tp": 1e3 * serve["seconds"]
+            / serve["decode_calls"],
+            "decode_calls": serve["decode_calls"],
+            "collectives_per_decode_call": serve.get("collectives"),
+            "launches_per_decode_call": serve["launches_per_call"],
+            "prefill_s": {k: res[k]["prefill"]["seconds"]
+                          for k in ("f32", "serve")},
+            "train_step_s": {k: res[k]["step_s"]
+                             for k in ("train", "train_f32")},
+            "train_collectives_per_step": res["train"].get("collectives"),
+            "peak_gb": {k: res[k]["peak_bytes"] / 1e9 for k in parts},
+            "launches": {k: res[k]["launches"] for k in parts},
+            "seconds": {k: res[k]["seconds"] for k in parts}}
+    return {"checks": checks, "one_process": row(one),
+            "per_rank": [{"rank": r["rank"], **row(r["paths"]["hybrid"])}
+                         for r in ranks],
+            "train_metrics": {k: {"one_process": one[k]["metrics"],
+                                  "plain": one[f"{k}_plain"]["metrics"],
+                                  "mesh": r0[k]["metrics"]}
+                              for k in ("train", "train_f32")},
+            "heads_a_rank": {"mamba2": 56, "shared_attention": 16}}
+
+
 def _lm_mesh_report(one: dict, ranks: list, ranks_s: float,
                     card: str, routing_agree) -> dict:
     """The lm_mesh phase's line from one process's results (`one`) and
@@ -7412,6 +7659,7 @@ def _lm_mesh_report(one: dict, ranks: list, ranks_s: float,
                 "serve_peak_gb": res["serve_peak_bytes"] / 1e9,
                 "train_peak_gb": res["train"]["peak_bytes"] / 1e9}
     moe = _lm_mesh_moe_report(one["moe"], ranks, verify, routing_agree)
+    hybrid = _lm_mesh_hybrid_report(one["hybrid"], ranks, verify)
     return {"phase": "lm_mesh", "ranks": LM_MESH_RANKS,
             "mesh": {"serve_and_train": {"data": 2, "model": 2},
                      "error_feedback": {"pod": 2, "model": 2}},
@@ -7432,7 +7680,8 @@ def _lm_mesh_report(one: dict, ranks: list, ranks_s: float,
             "collectives": ranks[0]["collectives"],
             "grad_norms_step0_top": _leaf_norm_diffs(
                 one["train"]["leaf_norms"], r0["train"]["leaf_norms"]),
-            "moe": moe, "ranks_wall_s": ranks_s, "launches": launches,
+            "moe": moe, "hybrid": hybrid, "ranks_wall_s": ranks_s,
+            "launches": launches,
             "failed": failed}
 
 
@@ -7458,8 +7707,8 @@ def _count_collectives() -> dict:
 
 def _lm_mesh_rank(rank: int, world: int, port: int, out_dir: str, seed: int,
                   go) -> None:
-    """One rank of the lm_mesh phase: `_lm_mesh_paths` (its MoE parts
-    included) on a (data 2, model 2) mesh and a (pod 2, model 2) mesh of
+    """One rank of the lm_mesh phase: `_lm_mesh_paths` (its MoE and hybrid
+    parts included) on a (data 2, model 2) mesh and a (pod 2, model 2) mesh of
     the `world` ranks sharing the card, with its kernel launches counted
     from 0 just before and read just after, its collectives counted, and
     any plain backward version recorded; then a check of the swiglu
@@ -7507,14 +7756,16 @@ def _lm_mesh_rank(rank: int, world: int, port: int, out_dir: str, seed: int,
     out["plain_backward"] = sorted(set(plain_bwd))
     out["marks_s"] = {k: v - t_go for k, v in marks.items()}
     out["collectives"] = {
-        "all_reduce SUM (f32) over model": "wo / wd partial sums and each "
-        "MoE layer's output, its experts' share (reduce_from_model), "
-        "copy_to_model's backward, CP decode's sum and "
-        "weighted values, the vocabulary's sums of exponentials and gold "
-        "logits",
+        "all_reduce SUM (f32) over model": "wo / wd / out_w partial sums "
+        "and each MoE layer's output, its experts' share "
+        "(reduce_from_model), copy_to_model's backward, the Mamba2 gated "
+        "norm's sum of squares both ways (sum_over_model), CP decode's sum "
+        "and weighted values, the vocabulary's sums of exponentials and "
+        "gold logits",
         "all_reduce MAX over model": "CP decode's max, the loss's max",
         "all_gather (list form) over model": "logits over the vocabulary, "
-        "CP decode's q / k / v heads",
+        "CP decode's q / k / v heads, the Mamba2 input projection's "
+        "columns (its backward an all-reduce SUM)",
         "all_gather (list form) over data": "logit rows; ZeRO-3 gathers of "
         "each parameter (bf16 as 16-bit words)",
         "all_reduce SUM over each data axis": "the train step's loss and "

@@ -30,7 +30,10 @@ data axes before a block runs and joins the model axis with Megatron's
 pair of autograd Functions: `copy_to_model` (forward the identity,
 backward an all-reduce SUM) where a replicated activation enters a
 tensor-parallel region, `reduce_from_model` (forward an all-reduce SUM,
-backward the identity) where the region's partial sums leave it.  Every
+backward the identity) where the region's partial sums leave it; and
+`sum_over_model` (an all-reduce SUM both ways) for a sum that stays inside
+the region, each rank using it for its own part (the Mamba block's gated
+norm).  Every
 collective is a plain `dist.all_reduce` or the list form of
 `dist.all_gather`: gloo runs neither DTensor's functional collectives nor a
 reduce-scatter on CUDA tensors, and `torch.distributed.nn`'s all-reduce
@@ -58,8 +61,8 @@ __all__ = ["ShardCtx", "shard_ctx", "current_ctx", "batch_spec",
            "occ_validate_sharding", "serve_snapshot_sharding",
            "serve_query_sharding", "AxisShard", "axis_shard", "gather_rows",
            "full_tensor", "unshard", "shard_block", "like_dtensor", "is_dtensor",
-           "ModelMesh", "copy_to_model", "reduce_from_model", "gather_model",
-           "model_whole"]
+           "ModelMesh", "copy_to_model", "reduce_from_model", "sum_over_model",
+           "gather_model", "model_whole"]
 
 
 @dataclass
@@ -513,6 +516,17 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mm):
+        ctx.mm = mm
+        return _sum_f32(x, mm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.mm), None
+
+
 class _GatherModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, mm, partial):
@@ -544,6 +558,17 @@ def reduce_from_model(x: torch.Tensor, mm: ModelMesh | None) -> torch.Tensor:
     if mm is None or mm.size == 1:
         return x
     return _ReduceFromModel.apply(x, mm)
+
+
+def sum_over_model(x: torch.Tensor, mm: ModelMesh | None) -> torch.Tensor:
+    """The model ranks' partial sums added (in f32, cast back), where the
+    sum stays inside the tensor-parallel region: each rank uses it for its
+    own part of the whole, so the backward all-reduces too (each rank's
+    gradient of the sum is a part of the whole gradient).  The identity
+    without a model axis."""
+    if mm is None or mm.size == 1:
+        return x
+    return _SumOverModel.apply(x, mm)
 
 
 def gather_model(x: torch.Tensor, dim: int, mm: ModelMesh,

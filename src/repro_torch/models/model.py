@@ -52,8 +52,8 @@ when `ShardCtx.zero3`, tensor-parallel over `model`), and `init` draws
 each whole tensor from the generator, one at a time, and keeps the block,
 so the weights equal one device's for the same seed.  A forward gathers a
 block's data axes before it runs (`transformer.local_weights`); the model
-axis splits heads, d_ff, the MoE experts and (where it divides it) the
-vocabulary (`ModelMesh`).  `prefill` and `decode_step` take the whole batch on every
+axis splits heads, d_ff, the MoE experts, the Mamba2 heads and (where it
+divides it) the vocabulary (`ModelMesh`).  `prefill` and `decode_step` take the whole batch on every
 rank, run this rank's rows (`local_batch`: the data axes split them as
 `batch_spec` says) and return the whole (B, V) logits on every rank;
 their caches are this rank's blocks (`init_cache`).  `loss` takes this

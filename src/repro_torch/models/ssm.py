@@ -21,12 +21,36 @@ The form here has finite gradients at every chunk.
 
 State cache for decode: {"conv": (B, w-1, d_inner) in the model dtype,
 "ssm": (B, H, hd, N) f32}; `mamba_decode` writes it in place.
+
+On a mesh (`mp`, a `distributed.shardings.ModelMesh`) whose model axis
+divides H (`ModelMesh.splits`), rank r of the n model ranks runs heads
+[r H/n, (r+1) H/n): its d_inner/n columns of z and x, its heads' dt, and
+B and C whole.  The parameters keep the JAX package's layout, whose rule
+splits the packed in_w's columns (z | x | B | C | dt) contiguously over
+the model axis, which does not line up with the heads: each rank
+multiplies by its columns and the projection is gathered whole over the
+model axis (`gather_model(partial=True)`: the gradient of B and C sums
+every rank's heads), then the rank takes its slices.  conv_w, a_log and
+d_skip are split by the same rule into blocks that line up with the
+rank's x columns and heads; out_w is split by rows, a row-parallel
+product summed over the ranks (`reduce_from_model`).  The gated norm's
+mean spans d_inner, so each rank's f32 sum of squares is added over the
+model ranks (`sum_over_model`, whose backward sums too).  The input and
+the replicated leaves a rank uses a slice of (gn, dt_bias) enter through
+`copy_to_model`, so their gradients sum every rank's part.  Where the axis
+does not divide H, every rank runs every head on weights gathered whole
+(`model_whole`), with no collective in the block.  The cache is this
+rank's block: conv (B, w-1, d_inner/n), ssm (B, H/n, hd, N).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.shardings import (
+    copy_to_model, gather_model, model_whole, reduce_from_model,
+    sum_over_model,
+)
 from repro_torch.models.layers import dense_init
 
 __all__ = ["init_mamba", "mamba_shapes", "mamba_train", "mamba_decode",
@@ -73,13 +97,51 @@ def init_mamba(gen: torch.Generator, cfg, dtype) -> dict[str, torch.Tensor]:
             "out_w": dense_init(gen, d_inner, d, dtype)}
 
 
-def _split_in(p, x, cfg):
-    """x (B, S, D) -> z, xs (the model dtype), B, C, dt (f32, softplus)."""
+def _split(cfg, mp) -> bool:
+    """Whether the model axis splits the heads (the rank runs H/n)."""
+    return mp is not None and mp.splits(_dims(cfg)[1])
+
+
+def _split_in(p, x, cfg, mp=None):
+    """x (B, S, D) -> z, xs (the model dtype), B, C, dt (f32, softplus): on
+    a mesh that splits the heads, this rank's z, xs and dt and the whole B
+    and C; elsewhere every head's."""
     d_inner, h, n = _dims(cfg)
-    proj = x @ p["in_w"]
-    z, xs, bb, cc, dt = torch.split(proj, [d_inner, d_inner, n, n, h], -1)
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
+    cols = 2 * d_inner + 2 * n + h
+    if not _split(cfg, mp):
+        proj = x @ model_whole(p["in_w"], 1, cols, mp, False)
+        z, xs, bb, cc, dt = torch.split(proj, [d_inner, d_inner, n, n, h],
+                                        -1)
+        dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
+        return z, xs, bb.to(torch.float32), cc.to(torch.float32), dt
+    x = copy_to_model(x, mp)
+    if mp.splits(cols):
+        proj = gather_model(x @ p["in_w"], -1, mp, True)
+    else:
+        proj = x @ model_whole(p["in_w"], 1, cols, mp, True)
+    di, hh, r = d_inner // mp.size, h // mp.size, mp.rank
+    z = proj[..., r * di:(r + 1) * di]
+    xs = proj[..., d_inner + r * di:d_inner + (r + 1) * di]
+    bb = proj[..., 2 * d_inner:2 * d_inner + n]
+    cc = proj[..., 2 * d_inner + n:2 * d_inner + 2 * n]
+    at = 2 * d_inner + 2 * n + r * hh
+    dt_bias = copy_to_model(p["dt_bias"], mp)[r * hh:(r + 1) * hh]
+    dt = F.softplus(proj[..., at:at + hh].to(torch.float32) + dt_bias)
     return z, xs, bb.to(torch.float32), cc.to(torch.float32), dt
+
+
+def _local(p, cfg, mp):
+    """(conv_w, a_log, d_skip, gn, out_w) as this rank runs them: its
+    blocks where the axis splits the heads (gn's slice through
+    `copy_to_model`), else whole."""
+    d_inner, h, _ = _dims(cfg)
+    if not _split(cfg, mp):
+        return (model_whole(p["conv_w"], 1, d_inner, mp, False), p["a_log"],
+                p["d_skip"], p["gn"],
+                model_whole(p["out_w"], 0, d_inner, mp, False))
+    di = d_inner // mp.size
+    gn = copy_to_model(p["gn"], mp)[mp.rank * di:(mp.rank + 1) * di]
+    return p["conv_w"], p["a_log"], p["d_skip"], gn, p["out_w"]
 
 
 def _conv_causal(xs, w, state=None):
@@ -100,12 +162,29 @@ def _conv_causal(xs, w, state=None):
     return F.silu(out.to(torch.float32)).to(xs.dtype), xp[:, s:]
 
 
-def _gated_norm(y, z, gn, eps):
+def _gated_norm(y, z, gn, eps, mp=None, width=None):
     """RMSNorm of y * silu(z) over the last dim, f32 (plain torch, as the
-    JAX package's is plain jnp)."""
+    JAX package's is plain jnp).  On a mesh that splits the heads, y and z
+    are this rank's columns of `width`: the sum of squares is added over
+    the model ranks."""
     yf = y.to(torch.float32) * F.silu(z.to(torch.float32))
-    ms = torch.mean(yf * yf, dim=-1, keepdim=True)
+    if mp is None:
+        ms = torch.mean(yf * yf, dim=-1, keepdim=True)
+    else:
+        ms = sum_over_model(torch.sum(yf * yf, dim=-1, keepdim=True),
+                            mp) / width
     return yf * torch.rsqrt(ms + eps) * gn.to(torch.float32)
+
+
+def _out(y, z, gn, out_w, x, cfg, mp):
+    """The gated norm of y (B, S, this rank's d_inner) and the output
+    projection -> (B, S, D), summed over the model ranks where they split
+    the heads."""
+    split = _split(cfg, mp)
+    y = _gated_norm(y, z, gn, cfg.norm_eps, mp if split else None,
+                    _dims(cfg)[0])
+    out = y.to(x.dtype) @ out_w
+    return reduce_from_model(out, mp) if split else out
 
 
 def _chunk(state, xck, bk, ck, dk, a, tri, cdt):
@@ -131,16 +210,18 @@ def _chunk(state, xck, bk, ck, dk, a, tri, cdt):
     return state, y_intra + y_inter
 
 
-def mamba_train(p, x, cfg):
+def mamba_train(p, x, cfg, mp=None):
     """x (B, S, D) -> (out (B, S, D), {"conv", "ssm"}: the cache after the
-    sequence).  The chunk is cfg.ssm_chunk, or S when it does not divide
-    S."""
+    sequence, this rank's block on a mesh).  The chunk is cfg.ssm_chunk,
+    or S when it does not divide S."""
     b, s, _ = x.shape
-    d_inner, h, n = _dims(cfg)
+    n = cfg.ssm_state
     hd = cfg.ssm_head_dim
-    z, xs, bb, cc, dt = _split_in(p, x, cfg)
-    xs, conv_state = _conv_causal(xs, p["conv_w"])
-    a = -torch.exp(p["a_log"])                           # (H,) negative
+    conv_w, a_log, d_skip, gn, out_w = _local(p, cfg, mp)
+    z, xs, bb, cc, dt = _split_in(p, x, cfg, mp)
+    h = dt.shape[-1]
+    xs, conv_state = _conv_causal(xs, conv_w)
+    a = -torch.exp(a_log)                                # (H,) negative
     q = min(cfg.ssm_chunk, s)
     if s % q:
         q = s
@@ -158,38 +239,43 @@ def mamba_train(p, x, cfg):
         ys.append(y)
     y = torch.stack(ys, 1).reshape(b, s, h, hd)
     y = y + xs.to(torch.float32).reshape(b, s, h, hd) \
-        * p["d_skip"][None, None, :, None]
-    y = _gated_norm(y.reshape(b, s, d_inner), z, p["gn"], cfg.norm_eps)
-    out = y.to(x.dtype) @ p["out_w"]
+        * d_skip[None, None, :, None]
+    out = _out(y.reshape(b, s, h * hd), z, gn, out_w, x, cfg, mp)
     return out, {"conv": conv_state, "ssm": state}
 
 
-def init_ssm_cache(cfg, batch: int, dtype, device) -> dict[str, torch.Tensor]:
+def init_ssm_cache(cfg, batch: int, dtype, device,
+                   mp=None) -> dict[str, torch.Tensor]:
+    """A layer's zeroed state; on a mesh that splits the heads, this
+    rank's block (d_inner/n columns of conv, H/n heads of ssm)."""
     d_inner, h, n = _dims(cfg)
+    if _split(cfg, mp):
+        d_inner, h = d_inner // mp.size, h // mp.size
     return {"conv": torch.zeros((batch, cfg.conv_width - 1, d_inner),
                                 dtype=dtype, device=device),
             "ssm": torch.zeros((batch, h, cfg.ssm_head_dim, n),
                                dtype=torch.float32, device=device)}
 
 
-def mamba_decode(p, x, cfg, cache):
+def mamba_decode(p, x, cfg, cache, mp=None):
     """One-token recurrent update.  x (B, 1, D) -> out (B, 1, D); the cache
-    is written in place."""
+    (this rank's block on a mesh) is written in place."""
     b = x.shape[0]
-    d_inner, h, n = _dims(cfg)
+    n = cfg.ssm_state
     hd = cfg.ssm_head_dim
-    z, xs, bb, cc, dt = _split_in(p, x, cfg)
-    xs, conv_state = _conv_causal(xs, p["conv_w"], cache["conv"])
-    a = -torch.exp(p["a_log"])
+    conv_w, a_log, d_skip, gn, out_w = _local(p, cfg, mp)
+    z, xs, bb, cc, dt = _split_in(p, x, cfg, mp)
+    h = dt.shape[-1]
+    xs, conv_state = _conv_causal(xs, conv_w, cache["conv"])
+    a = -torch.exp(a_log)
     xh = xs.reshape(b, h, hd).to(torch.float32)
     dt1 = dt.reshape(b, h)
     da = torch.exp(dt1 * a[None, :])                     # (B, H)
     upd = torch.einsum("bhd,bn->bhdn", xh * dt1[..., None], bb.reshape(b, n))
     state = cache["ssm"] * da[:, :, None, None] + upd
     y = torch.einsum("bn,bhdn->bhd", cc.reshape(b, n), state)
-    y = y + xh * p["d_skip"][None, :, None]
-    y = _gated_norm(y.reshape(b, 1, d_inner), z, p["gn"], cfg.norm_eps)
-    out = y.to(x.dtype) @ p["out_w"]
+    y = y + xh * d_skip[None, :, None]
+    out = _out(y.reshape(b, 1, h * hd), z, gn, out_w, x, cfg, mp)
     cache["conv"].copy_(conv_state)
     cache["ssm"].copy_(state)
     return out

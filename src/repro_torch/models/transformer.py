@@ -18,10 +18,13 @@ not keys and values.
 
 On a mesh (`mp`, a `distributed.shardings.ModelMesh`) the blocks run this
 rank's part: its heads (`models/attention.py`), its columns of d_ff
-(`models/layers.mlp_apply`) and its experts (`models/moe.py`).  Only the
-`attn_mlp` and `attn_moe` kinds run on a model axis of more than one rank
-(`require_mesh_ported`); every kind runs on the data axes, whose
-parameters `run_stack_*` gather before a block runs (`local_weights`).
+(`models/layers.mlp_apply`), its experts (`models/moe.py`) and its Mamba2
+heads (`models/ssm.py`).  The `attn_mlp`, `attn_moe`, `mamba` and
+`shared_attn` kinds run on a model axis of more than one rank
+(`require_mesh_ported`; the shared block splits as `attn_mlp` does, and
+its one parameter set gathers the gradient of every use); every kind runs
+on the data axes, whose parameters `run_stack_*` gather before a block
+runs (`local_weights`).
 
 Where autograd records, `run_stack_train` rematerializes each block as
 `cfg.remat` says (the counterpart of the JAX package's `_remat_wrap`):
@@ -60,7 +63,8 @@ SEGMENT_KINDS = ("attn_mlp", "attn_moe", "shared_attn", "mamba", "mlstm",
 
 
 class _Recurrent(NamedTuple):
-    """A recurrent block's functions (its input is normed by norm1)."""
+    """A recurrent block's functions (its input is normed by norm1); those
+    of a kind in MESH_KINDS also take the mesh as `mp=`."""
     shapes: Callable      # (cfg, dtype) -> {name: (shape, dtype)}
     init: Callable        # (gen, cfg, dtype) -> {name: tensor}
     train: Callable       # (p, x, cfg) -> (out, state after the sequence)
@@ -85,15 +89,21 @@ def require_ported(kind: str) -> None:
 
 
 # the kinds that run on a model axis of more than one rank
-MESH_KINDS = ("attn_mlp", "attn_moe")
+MESH_KINDS = ("attn_mlp", "attn_moe", "mamba", "shared_attn")
+
+
+def _mesh_kw(kind: str, mp) -> dict:
+    """The mesh argument of a recurrent kind's functions: `mp=` for a kind
+    that runs on a model axis, none for the others (which the model axis
+    refuses, `require_mesh_ported`)."""
+    return {"mp": mp} if kind in MESH_KINDS else {}
 
 
 def require_mesh_ported(cfg, mp) -> None:
-    """Raise for what the language model's mesh does not run: a kind other
-    than `attn_mlp` and `attn_moe` (`mamba`, `shared_attn`, `mlstm`,
-    `slstm`, `enc_attn_mlp`, `dec_attn_mlp`), or a frontend, on a model
-    axis of more than one rank, and the dry run's levers (`seq_shard_acts`,
-    `force_decode_mode`)."""
+    """Raise for what the language model's mesh does not run: a kind
+    outside MESH_KINDS (`mlstm`, `slstm`, `enc_attn_mlp`, `dec_attn_mlp`),
+    or a frontend, on a model axis of more than one rank, and the dry
+    run's levers (`seq_shard_acts`, `force_decode_mode`)."""
     if mp is None:
         return
     what = []
@@ -108,8 +118,8 @@ def require_mesh_ported(cfg, mp) -> None:
             what.append(f"the {cfg.frontend} frontend")
     if what:
         raise NotImplementedError(
-            f"{', '.join(what)} on this mesh: queued after the dense and "
-            "MoE families' tensor parallelism (ROADMAP.md queue 1: "
+            f"{', '.join(what)} on this mesh: queued after the dense, MoE "
+            "and hybrid families' tensor parallelism (ROADMAP.md queue 1: "
             "multi-card)")
 
 
@@ -234,7 +244,7 @@ def block_train(p, x, cfg, kind: str, positions, backend: str = "auto",
     require_ported(kind)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, backend)
     if kind in _RECURRENT:
-        out, cache = _RECURRENT[kind].train(p, h, cfg)
+        out, cache = _RECURRENT[kind].train(p, h, cfg, **_mesh_kw(kind, mp))
         return x + out, cache
     if kind == "enc_attn_mlp":
         a, (k, v) = _bidir_attention(p, h, cfg, positions)
@@ -267,10 +277,12 @@ def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype,
     """A layer's zeroed cache; a decoder block's cross keys and values
     (batch, enc_len or cfg.frontend_len, Hkv, hd) beside its own.  On a
     mesh, this rank's block in decode mode `mode`'s layout
-    (`attention.init_kv_cache`)."""
+    (`attention.init_kv_cache`; a Mamba block's state is head-split in
+    either mode, `ssm.init_ssm_cache`)."""
     require_ported(kind)
     if kind in _RECURRENT:
-        return _RECURRENT[kind].cache(cfg, batch, dtype, device)
+        return _RECURRENT[kind].cache(cfg, batch, dtype, device,
+                                      **_mesh_kw(kind, mp))
     c = attn.init_kv_cache(cfg, batch, cache_len, dtype, device, mp, mode)
     if kind == "dec_attn_mlp":
         cc = attn.init_kv_cache(cfg, batch, enc_len or cfg.frontend_len,
@@ -284,7 +296,8 @@ def block_decode(p, x, cfg, kind: str, cache, pos, decode_mode: str = "tp",
     require_ported(kind)
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, backend)
     if kind in _RECURRENT:
-        return x + _RECURRENT[kind].decode(p, h, cfg, cache), cache
+        return x + _RECURRENT[kind].decode(p, h, cfg, cache,
+                                           **_mesh_kw(kind, mp)), cache
     a, _ = attn.attention_decode(p, h, cfg, cache, pos, mode=decode_mode,
                                  mp=mp)
     x = x + a

@@ -26,6 +26,19 @@ bit for bit equal over the model ranks after the steps, a (2, 2)
 checkpoint onto (1, 2) and one process, and the launchers' `--mesh
 single` for olmoe-1b-7b and phi3.5-moe.
 
+The hybrid family (zamba2-7b's Mamba2 heads and its shared attention and
+MLP block over `model`) rides them too: reduced(zamba2-7b) from the JAX
+weights on (2, 4), two Mamba2 heads a rank (prefill, "tp" / "cp" decode,
+the conv and ssm states and each shared application's keys and values),
+and its sharded step on (2, 2, 2), at the JAX tests' bars; against the
+port's one process, "tp" and "cp" serving on (2, 4), the steps on (2, 4)
+(ZeRO-3) and (4, 2) (ZeRO-3 off, 2 microbatches), error feedback, a
+narrow config whose H = 4 the (1, 8) axis does not divide (every head on
+every rank, the split leaves gathered), the replicated leaves (gn,
+dt_bias, the norms, the shared block's) bit for bit equal over the model
+ranks, a (2, 4) checkpoint restored into one process, and both launchers'
+`--mesh single`.
+
 Bars.  Against the JAX package, its tests' own: CP and TP decode logits
 2e-3 and caches 1e-4 (also CP against TP), the sharded step's loss 1e-4
 and parameters 2e-4.  Against the port's one-process runs, in f32: greedy
@@ -34,7 +47,11 @@ norm 1e-5 (relative), parameters after the steps 1e-5 (2e-4 with error
 feedback, where a code one step off in the int8 quantization moves a
 parameter by up to two learning rates of AdamW's first steps), a resumed
 mesh run bit for bit the uninterrupted one, and every rank's results the
-same.
+same.  The hybrid family's steps are held by `_assert_train_hybrid`'s
+rule instead: its Mamba2 blocks amplify the mesh's other rounding into
+gradients 1.5e-5 of a leaf's largest magnitude apart, which AdamW's first
+steps turn into a move of up to a learning rate at a parameter whose
+gradient is that close to zero.
 """
 import contextlib
 import json
@@ -83,8 +100,7 @@ SERVE_CASES = [
     ("qwen_cp_falls_back", "qwen3-4b", 0, (2, 4), ("data", "model"), True,
      "cp", 18),
 ]
-OTHER_KINDS = ["zamba2-7b", "xlstm-1.3b", "internvl2-2b",
-               "seamless-m4t-medium"]
+OTHER_KINDS = ["xlstm-1.3b", "internvl2-2b", "seamless-m4t-medium"]
 # The MoE block with its experts over the model axis.  The eight ranks run
 # two (data, model) meshes of four side by side (a "rep" axis of 2 over
 # them): group 0 reduced(olmoe-1b-7b) (E 4, top-2), group 1 the narrow
@@ -104,6 +120,29 @@ MOE_TRAIN_ARGV = ["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
 MOE_SERVE_ARGV = ["--arch", "phi3.5-moe", "--reduced", "--device", "cpu",
                   "--requests", "2", "--slots", "2", "--prompt-len", "3",
                   "--max-new", "2", "--cache-len", "16"]
+# The hybrid family on the model axis: reduced(zamba2-7b) (H 8 Mamba2 heads
+# of 16, the shared block's 4 heads) and its narrow variant (heads of 32:
+# H = 4, which the (1, 8) axis does not divide).
+# (name, mesh shape, axes, zero3, microbatches, compress)
+HYB_TRAIN_CASES = [
+    ("zero3_2x4", (2, 4), ("data", "model"), True, 1, False),
+    ("zero3_off_micro2_4x2", (4, 2), ("data", "model"), False, 2, False),
+    ("ef_2x4", (2, 4), ("data", "model"), True, 1, True),
+    ("narrow_1x8", (1, 8), ("data", "model"), True, 1, False),
+]
+HYB_SERVE = (3, 2, 2, 2)            # requests, slots, prompt, new tokens
+# The f32 gradients of the mesh against one process's, each leaf within
+# this fraction of its largest magnitude (at most 1.53e-5 measured, where a
+# mesh without a model axis stays within 7.1e-7): the Mamba2 blocks
+# amplify the other rounding of the tensor-parallel sums.
+HYB_GRAD_TOL = 1e-4
+HYB_TRAIN_ARGV = ["--arch", "zamba2-7b", "--reduced", "--device", "cpu",
+                  "--steps", "2", "--batch", "4", "--seq", "16",
+                  "--log-every", "100"]
+HYB_SERVE_ARGV = ["--arch", "zamba2-7b", "--reduced", "--device", "cpu",
+                  "--requests", "2", "--slots", "2", "--prompt-len", "3",
+                  "--max-new", "2", "--cache-len", "16", "--decode-mode",
+                  "cp"]
 
 
 # ---------------------------------------------------------------- the JAX side
@@ -141,6 +180,11 @@ o_m = build_model(o_cfg)
 with shard_ctx(g_mesh), g_mesh:
     o_params = o_m.init(jax.random.key(1))
 o_toks = jnp.asarray(rng.integers(0, o_cfg.vocab, (4, 12)), jnp.int32)
+z_cfg = reduced(ARCHS["zamba2-7b"]).replace(dtype="float32")
+z_m = build_model(z_cfg)
+with shard_ctx(g_mesh), g_mesh:
+    z_params = z_m.init(jax.random.key(2))
+z_toks = jnp.asarray(rng.integers(0, z_cfg.vocab, (4, 12)), jnp.int32)
 q_cfg = reduced(ARCHS["qwen3-4b"]).replace(dtype="float32")
 q_m = build_model(q_cfg)
 tcfg = TrainConfig()
@@ -150,7 +194,9 @@ state0 = train_state_init(q_m.init(jax.random.key(0)), tcfg)
 put("granite/", params)
 put("qwen/", state0.params)
 put("olmoe/", o_params)
+put("zamba2/", z_params)
 out["moe_toks"] = np.asarray(o_toks)
+out["hyb_toks"] = np.asarray(z_toks)
 out["toks"], out["pos"] = np.asarray(toks), np.asarray(pos)
 out["tokens"], out["labels"] = np.asarray(batch["tokens"]), np.asarray(batch["labels"])
 save("{inputs}")
@@ -172,6 +218,18 @@ out["moe_prefill"] = np.asarray(o_lg)
 out["moe_lg_tp"], out["moe_lg_cp"] = np.asarray(o_tp), np.asarray(o_cp)
 put("moe_cache_tp/", oc_tp)
 put("moe_cache_cp/", oc_cp)
+# the hybrid family, Mamba2 heads and the shared block over the model axis
+# (jitted: op by op, its Mamba2 blocks' many small ops take 20 s more)
+with shard_ctx(g_mesh), g_mesh:
+    z_lg, _ = jax.jit(z_m.prefill)(z_params, {"tokens": z_toks})
+    z_caches = z_m.init_cache(4, 32)
+    z_dec = jax.jit(z_m.decode_step, static_argnums=4)
+    z_tp, zc_tp = z_dec(z_params, z_caches, toks, pos, "tp")
+    z_cp, zc_cp = z_dec(z_params, z_caches, toks, pos, "cp")
+out["hyb_prefill"] = np.asarray(z_lg)
+out["hyb_lg_tp"], out["hyb_lg_cp"] = np.asarray(z_tp), np.asarray(z_cp)
+put("hyb_cache_tp/", zc_tp)
+put("hyb_cache_cp/", zc_cp)
 # test_sharded_train_step_matches_single_device
 mesh = compat_mesh((2, 2, 2), ("pod", "data", "model"))
 with shard_ctx(mesh), mesh:
@@ -184,6 +242,11 @@ with shard_ctx(mesh), mesh:
     o_sh, o_met = jax.jit(make_train_step(o_m, tcfg))(o_state, batch)
 out["moe_train_loss"] = np.asarray(o_met["loss"])
 put("moe_trained/", o_sh.params)
+with shard_ctx(mesh), mesh:
+    z_state = train_state_init(z_m.init(jax.random.key(2)), tcfg)
+    z_sh, z_met = jax.jit(make_train_step(z_m, tcfg))(z_state, batch)
+out["hyb_train_loss"] = np.asarray(z_met["loss"])
+put("hyb_trained/", z_sh.params)
 save("{path}")
 """
 
@@ -224,6 +287,10 @@ def _whole_caches(model, caches: dict, b: int, mode: str) -> dict:
     ({"seg_00": {"k": (L, B, S, Hkv, hd), ...}})."""
     mp = model.mp
     cfg = model.cfg
+    # a Mamba block's state: conv (B, w-1, d_inner), ssm (B, H, hd, N),
+    # head-split in either mode where the axis divides H
+    ssm_dim = {"conv": 2, "ssm": 1} if cfg.ssm_state and mp.splits(
+        cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim) else {}
     out = {}
     for seg, layers in caches.items():
         whole = {}
@@ -231,7 +298,10 @@ def _whole_caches(model, caches: dict, b: int, mode: str) -> dict:
             ts = []
             for c in layers:
                 t = c[name]
-                if mode == "cp" and mp.size > 1:
+                if name in ("conv", "ssm"):
+                    if name in ssm_dim:
+                        t = mp.gather(t.contiguous(), ssm_dim[name])
+                elif mode == "cp" and mp.size > 1:
                     t = mp.gather(t.contiguous(), 1)
                 elif mp.splits(cfg.n_kv_heads):
                     t = mp.gather(t.contiguous(), 2)
@@ -254,25 +324,43 @@ def _serve(model, mode: str, cache_len: int = 16, sizes=(5, 3, 5, 4)):
     return sorted((r.uid, tuple(r.out)) for r in eng.run(reqs))
 
 
-def _train(model, tcfg, steps: int = STEPS, states=None):
+def _train(model, tcfg, steps: int = STEPS, states=None, grads: int = 0):
     """`steps` steps of a pipeline of 8 x 16: each step's (loss, grad norm,
     lr) and the parameters after them (JAX layout); the final state
-    appended to `states` if given."""
-    from repro_torch.convert import train_state_to_numpy
+    appended to `states` if given; the gradients of the first `grads`
+    steps as AdamW takes them (JAX layout, whole)."""
+    from repro_torch.convert import _to_jax_layout, train_state_to_numpy
     from repro_torch.data.tokens import TokenPipeline
-    from repro_torch.training.step import make_train_step, train_state_init
+    from repro_torch.distributed.shardings import is_dtensor, like_dtensor
+    from repro_torch.training import step as step_mod
     pipe = TokenPipeline(model.cfg.vocab, 8, 16, seed=0)
-    st = train_state_init({n: p.detach() for n, p in
-                           model.named_parameters()}, tcfg)
-    step = make_train_step(model, tcfg)
+    st = step_mod.train_state_init({n: p.detach() for n, p in
+                                    model.named_parameters()}, tcfg)
+    step = step_mod.make_train_step(model, tcfg)
+    update, seen = step_mod.adamw_update, []
+
+    def recorded(params, g, *a, **kw):
+        if len(seen) < grads:
+            seen.append(dict(_leaves(_to_jax_layout({
+                n: like_dtensor(t.contiguous(), st.params[n])
+                if is_dtensor(st.params[n]) else t for n, t in g.items()}))))
+        return update(params, g, *a, **kw)
+    if grads:
+        step_mod.adamw_update = recorded
     mets = []
-    for i in range(steps):
-        st, met = step(st, pipe.batch_at(i))
-        mets.append([float(met[k]) for k in ("loss", "grad_norm", "lr")])
+    try:
+        for i in range(steps):
+            st, met = step(st, pipe.batch_at(i))
+            mets.append([float(met[k]) for k in ("loss", "grad_norm", "lr")])
+    finally:
+        step_mod.adamw_update = update
     if states is not None:
         states.append(st)
-    return {"metrics": mets,
-            "params": dict(_leaves(train_state_to_numpy(st).params))}
+    out = {"metrics": mets,
+           "params": dict(_leaves(train_state_to_numpy(st).params))}
+    if grads:
+        out["grads"] = seen
+    return out
 
 
 def _moe_cfg(which: str, impl: str = "capacity"):
@@ -421,6 +509,76 @@ def _lm_mesh_moe(rank, mesh_of, ckpt_dir) -> dict:
     return out
 
 
+def _hyb_cfg(narrow: bool = False):
+    """reduced(zamba2-7b) in f32; `narrow`: Mamba2 heads of 32 (H = 4)."""
+    cfg = _cfg("zamba2-7b")
+    return cfg.replace(ssm_head_dim=32) if narrow else cfg
+
+
+def _hyb_batch(cfg):
+    return {"tokens": np.random.default_rng(2).integers(0, cfg.vocab,
+                                                        (B, MOE_S))}
+
+
+def _hyb_forward(model) -> dict:
+    """The prefill's logits and the slot engine's greedy tokens in "tp"
+    and "cp" (`HYB_SERVE`, cache 16)."""
+    return {"prefill": model.prefill(_hyb_batch(model.cfg))[0].numpy(),
+            "layout": model.decode_layout(16, "cp"),
+            "tokens": {mode: _serve(model, mode, sizes=HYB_SERVE)
+                       for mode in ("tp", "cp")}}
+
+
+def _lm_mesh_hybrid(rank, mesh_of, ckpt_dir) -> dict:
+    """This rank's hybrid cases against one process: serving on (2, 4) and
+    on (1, 8) (the narrow config), the `HYB_TRAIN_CASES` steps with their
+    gradients and replicated leaves, and the trained (2, 4) state saved
+    for a one-process restore."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import TrainConfig
+    from repro_torch.distributed.shardings import shard_ctx
+    from repro_torch.models import build_model
+
+    def on(cfg, mesh, zero3=True):
+        with shard_ctx(mesh, zero3=zero3):
+            return build_model(cfg, device="cpu", mesh=mesh).init(
+                torch.Generator().manual_seed(0))
+    out = {"fwd": {}, "train": {}, "replicated": {}, "coord": {}}
+    # full width on the meta device: this rank's blocks of a Mamba2 layer
+    # and of the shared block
+    from repro_torch.configs import get_arch
+    with shard_ctx(mesh_of((2, 4), ("data", "model"))):
+        mf = build_model(get_arch("zamba2-7b"), device="meta",
+                         mesh=mesh_of((2, 4), ("data", "model")))
+    layer = mf.segments["seg_00"][0]
+    out["full_width"] = {n: tuple(layer[n].to_local().shape)
+                         for n in layer.keys()}
+    out["full_width"]["shared.wq"] = tuple(mf.shared["wq"].to_local().shape)
+    del mf, layer
+    m = on(_hyb_cfg(), mesh_of((2, 4), ("data", "model")))
+    out["mamba_in_w"] = tuple(m.segments["seg_00"][0]["in_w"]
+                              .to_local().shape)
+    out["fwd"]["2x4"] = _hyb_forward(m)
+    m8 = on(_hyb_cfg(narrow=True), mesh_of((1, 8), ("data", "model")))
+    out["fwd"]["narrow_1x8"] = _hyb_forward(m8)
+    out["narrow_in_w"] = tuple(m8.segments["seg_00"][0]["in_w"]
+                               .to_local().shape)
+    for name, shape, axes, zero3, micro, ef in HYB_TRAIN_CASES:
+        mesh = mesh_of(shape, axes)
+        m = on(_hyb_cfg(narrow=name.startswith("narrow")), mesh, zero3)
+        states = []
+        out["train"][name] = _train(m, TrainConfig(
+            warmup_steps=1, total_steps=4, microbatches=micro,
+            compress_cross_pod=ef), states=states, grads=1)
+        out["replicated"][name] = _replicated(states[0].params)
+        out["coord"][name] = mesh.get_coordinate()
+        if name == "zero3_2x4":
+            CheckpointManager(os.path.join(ckpt_dir, "hybrid")).save(
+                1, states[0].params)
+            out["trained_prefill"] = m.prefill(_hyb_batch(m.cfg))[0].numpy()
+    return out
+
+
 def _lm_mesh_rank(rank, world, jax_npz, ckpt_dir):
     import torch.distributed as dist
     from repro_torch.configs import TrainConfig
@@ -469,6 +627,7 @@ def _lm_mesh_rank(rank, world, jax_npz, ckpt_dir):
         out["train"][name] = _train(mm, tcfg)
 
     out["moe"] = _lm_mesh_moe(rank, mesh_of, ckpt_dir)
+    out["hybrid"] = _lm_mesh_hybrid(rank, mesh_of, ckpt_dir)
 
     # -- other kinds and the dry run's levers raise on a model axis
     mesh = mesh_of((2, 4), ("data", "model"))
@@ -529,6 +688,19 @@ def _lm_mesh_rank(rank, world, jax_npz, ckpt_dir):
         out[f"moe_cache_{mode}"] = dict(_leaves(_whole_caches(
             mo, caches, B, mode)))
 
+    # -- the hybrid family from the JAX weights on (2, 4): two heads a rank
+    with shard_ctx(mesh):
+        mz = lm_params_from_numpy(_nest(jx, "zamba2/"), _hyb_cfg(),
+                                  device="cpu", mesh=mesh)
+    out["hyb_prefill"] = mz.prefill({"tokens": jx["hyb_toks"]})[0].numpy()
+    for mode in ("tp", "cp"):
+        caches = mz.init_cache(B, CL, mode)
+        lg, caches = mz.decode_step(caches, jx["toks"], jx["pos"],
+                                    decode_mode=mode)
+        out[f"hyb_lg_{mode}"] = lg.numpy()
+        out[f"hyb_cache_{mode}"] = dict(_leaves(_whole_caches(
+            mz, caches, B, mode)))
+
     # -- the JAX test's sharded step on (2, 2, 2) from the JAX weights
     mesh = mesh_of((2, 2, 2), ("pod", "data", "model"))
     cfg = _cfg("qwen3-4b")
@@ -550,6 +722,15 @@ def _lm_mesh_rank(rank, world, jax_npz, ckpt_dir):
         so, {"tokens": jx["tokens"], "labels": jx["labels"]})
     out["moe_train_loss"] = float(met["loss"])
     out["moe_trained"] = dict(_leaves(train_state_to_numpy(so).params))
+    with shard_ctx(mesh):
+        mz = lm_params_from_numpy(_nest(jx, "zamba2/"), _hyb_cfg(),
+                                  device="cpu", mesh=mesh)
+    sz = train_state_init({n: p.detach() for n, p in
+                           mz.named_parameters()}, TrainConfig())
+    sz, met = make_train_step(mz, TrainConfig())(
+        sz, {"tokens": jx["tokens"], "labels": jx["labels"]})
+    out["hyb_train_loss"] = float(met["loss"])
+    out["hyb_trained"] = dict(_leaves(train_state_to_numpy(sz).params))
     # the DTensor blocks through CheckpointManager.save / restore(shardings=)
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.distributed.shardings import (
@@ -581,6 +762,10 @@ def _lm_mesh_rank(rank, world, jax_npz, ckpt_dir):
         "train": train_launch.main(MOE_TRAIN_ARGV + ["--mesh", "single"]),
         "serve": sorted((r.uid, tuple(r.out)) for r in serve_launch.main(
             MOE_SERVE_ARGV + ["--mesh", "single"]))}
+    out["hyb_launch"] = {
+        "train": train_launch.main(HYB_TRAIN_ARGV + ["--mesh", "single"]),
+        "serve": sorted((r.uid, tuple(r.out)) for r in serve_launch.main(
+            HYB_SERVE_ARGV + ["--mesh", "single"]))}
     train_argv = ["--arch", "granite-3-2b", "--reduced", "--device", "cpu",
                   "--steps", "4", "--batch", "4", "--seq", "16",
                   "--mesh", "single", "--log-every", "100"]
@@ -850,17 +1035,18 @@ def _assert_train(got: dict, want: dict, first: dict) -> None:
                                    err_msg=leaf)
 
 
-def _assert_replicated_equal(blocks: list, coords: list) -> None:
+def _assert_replicated_equal(blocks: list, coords: list,
+                             among=(".router", ".norm2")) -> None:
     """Ranks at one data coordinate hold bit-identical blocks of every
-    leaf the model axis does not split (the router and the norms among
-    them)."""
+    leaf the model axis does not split (the leaves named by the suffixes
+    `among` among them)."""
     by_data: dict = {}
     for b, c in zip(blocks, coords):
         by_data.setdefault(c[0], []).append(b)
     for same in by_data.values():
         assert len(same) > 1
-        assert any(n.endswith(".router") for n in same[0])
-        assert any(n.endswith(".norm2") for n in same[0])
+        for leaf in among:
+            assert any(n.endswith(leaf) for n in same[0]), leaf
         for b in same[1:]:
             assert b.keys() == same[0].keys()
             for n in b:
@@ -1039,3 +1225,208 @@ def test_launchers_mesh_single_run_moe(runs):
     for r in runs["ranks"]:
         assert abs(r["moe_launch"]["train"] - loss) < TOL_F32
         assert r["moe_launch"]["serve"] == tokens
+
+
+# ----------------------------------------- the hybrid family on a model axis
+
+def _hyb_one(narrow: bool = False) -> dict:
+    """One process's `_hyb_forward` of reduced zamba2-7b (or the narrow
+    config)."""
+    from repro_torch.models import build_model
+    return _once(("hybrid_forward", narrow), lambda: _hyb_forward(
+        build_model(_hyb_cfg(narrow), device="cpu").init(
+            torch.Generator().manual_seed(0))))
+
+
+def _hyb_one_train(case) -> dict:
+    """One process's `_train` (with the gradients) of a HYB_TRAIN_CASES
+    case."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import build_model
+    name, _, _, _, micro, ef = case
+    return _once(("hybrid_train", name), lambda: _train(
+        build_model(_hyb_cfg(name.startswith("narrow")), device="cpu").init(
+            torch.Generator().manual_seed(0)), TrainConfig(
+            warmup_steps=1, total_steps=4, microbatches=micro,
+            compress_cross_pod=ef), grads=STEPS))
+
+
+def _assert_train_hybrid(got: dict, want: dict, first: dict,
+                         ef: bool) -> None:
+    """The hybrid family's steps against one process's.  Every rank's
+    metrics are rank 0's; every step's loss within 1e-5; the first step's
+    grad norm within 1e-5 and its gradients each within HYB_GRAD_TOL of
+    the leaf's largest magnitude (with error feedback, plus one int8 code,
+    a 127th of it: a gradient on a code's rounding boundary may take the
+    next code on the mesh); the later steps' grad norms (and error
+    feedback's) within 1e-3.  Each parameter within 1e-5 (TOL_EF_PARAMS
+    with error feedback), except where one process's gradient at some step
+    lies within HYB_GRAD_TOL of the leaf's largest magnitude of zero: AdamW
+    moves such a parameter by up to a learning rate a step whatever the
+    size of its gradient, so the gradients' f32 noise sets its sign, and it
+    is held within two learning rates a step."""
+    from repro_torch.configs import TrainConfig
+    assert got["metrics"] == first["metrics"]
+    gm, wm = np.asarray(got["metrics"]), np.asarray(want["metrics"])
+    np.testing.assert_allclose(gm[:, 0], wm[:, 0], rtol=TOL_F32)
+    np.testing.assert_allclose(gm[0, 1], wm[0, 1],
+                               rtol=1e-3 if ef else TOL_F32)
+    np.testing.assert_allclose(gm[1:, 1], wm[1:, 1], rtol=1e-3)
+    g0, w0 = got["grads"][0], want["grads"][0]
+    assert set(g0) == set(w0) == set(want["params"])
+    for leaf, a in w0.items():
+        scale = float(np.abs(a).max())
+        tol = HYB_GRAD_TOL + (1 / 127 if ef else 0.0)
+        np.testing.assert_allclose(g0[leaf], a, atol=tol * scale,
+                                   err_msg=leaf)
+    lr = TrainConfig().learning_rate
+    steps = len(want["metrics"])
+    for leaf, a in want["params"].items():
+        noise = np.zeros(a.shape, bool)
+        for g in want["grads"]:
+            noise |= np.abs(g[leaf]) <= HYB_GRAD_TOL * np.abs(g[leaf]).max()
+        tol = np.where(noise, 2 * lr * steps,
+                       TOL_EF_PARAMS if ef else TOL_F32)
+        d = np.abs(got["params"][leaf] - a)
+        assert np.all(d <= tol), (leaf, float(d.max()),
+                                  int((d > tol).sum()))
+
+
+def test_hybrid_heads_split_over_model_equal_jax_prefill(runs):
+    """reduced(zamba2-7b) on (2, 4): each rank holds 74 of in_w's 296
+    packed columns (and 32 of its 64 rows, ZeRO-3), runs two of the 8
+    Mamba2 heads and one of the shared block's 4, and the prefill's logits
+    equal the JAX package's GSPMD run on the same weights."""
+    jx = runs["jax"]
+    for r in runs["ranks"]:
+        assert r["hybrid"]["mamba_in_w"] == (32, 74)
+        np.testing.assert_allclose(r["hyb_prefill"], jx["hyb_prefill"],
+                                   atol=2e-3)
+
+
+def test_hybrid_full_width_builds_on_model_axis(runs):
+    """zamba2-7b at full width on (2, 4), on the meta device: a rank holds
+    28 of the 112 Mamba2 heads' a_log and d_skip, their 1,792 conv
+    columns and out_w rows, 3,644 of in_w's 14,576 packed columns (its
+    3,584 rows over the data axis), gn and dt_bias whole, and 8 of the
+    shared block's 32 query heads of 112."""
+    for r in runs["ranks"]:
+        assert r["hybrid"]["full_width"] == {
+            "norm1": (3584,), "in_w": (1792, 3644), "conv_w": (4, 1792),
+            "a_log": (28,), "dt_bias": (112,), "d_skip": (28,),
+            "gn": (7168,), "out_w": (1792, 1792), "shared.wq": (1792, 896)}
+
+
+@pytest.mark.parametrize("mode", ["tp", "cp"])
+def test_hybrid_decode_logits_and_caches_equal_jax(runs, mode):
+    """"tp" and "cp" decode on (2, 4) from the JAX weights: logits, the
+    Mamba2 conv and ssm states (head-split in both modes) and each shared
+    application's keys and values (sequence-split in "cp") gathered whole,
+    against the JAX package's."""
+    jx = runs["jax"]
+    for r in runs["ranks"]:
+        np.testing.assert_allclose(r[f"hyb_lg_{mode}"], jx[f"hyb_lg_{mode}"],
+                                   atol=2e-3)
+    caches = dict(_leaves(_nest(jx, f"hyb_cache_{mode}/")))
+    got = runs["ranks"][0][f"hyb_cache_{mode}"]
+    assert set(got) == set(caches)
+    assert any(n.endswith("/ssm") for n in got)
+    assert any(n.endswith("/k") for n in got)
+    for name, want in caches.items():
+        np.testing.assert_allclose(got[name], want, atol=1e-4, err_msg=name)
+
+
+def test_hybrid_sharded_train_step_equals_jax(runs):
+    jx = runs["jax"]
+    trained = dict(_leaves(_nest(jx, "hyb_trained/")))
+    for r in runs["ranks"]:
+        assert abs(r["hyb_train_loss"] - float(jx["hyb_train_loss"])) < 1e-4
+        assert set(r["hyb_trained"]) == set(trained)
+        for name, want in trained.items():
+            np.testing.assert_allclose(r["hyb_trained"][name], want,
+                                       atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("which", ["2x4", "narrow_1x8"])
+def test_hybrid_mesh_serving_equals_one_process(runs, which):
+    """The prefill within 1e-5 and the engine's greedy tokens in "tp" and
+    "cp" identical to one process's: on (2, 4) two Mamba2 heads a rank;
+    the narrow config's H = 4 on (1, 8) every head on every rank, in_w
+    gathered whole (its 292 columns are not split: 8 does not divide
+    them)."""
+    narrow = which.startswith("narrow")
+    want = _hyb_one(narrow)
+    for r in runs["ranks"]:
+        got = r["hybrid"]["fwd"][which]
+        assert got["layout"] == "cp"
+        np.testing.assert_allclose(got["prefill"], want["prefill"],
+                                   atol=TOL_F32)
+        assert got["tokens"] == want["tokens"]
+        if narrow:
+            assert r["hybrid"]["narrow_in_w"] == (64, 292)
+
+
+@pytest.mark.parametrize("case", HYB_TRAIN_CASES, ids=lambda c: c[0])
+def test_hybrid_mesh_train_steps_equal_one_process(runs, case):
+    want = _hyb_one_train(case)
+    first = runs["ranks"][0]["hybrid"]["train"][case[0]]
+    for r in runs["ranks"]:
+        _assert_train_hybrid(r["hybrid"]["train"][case[0]], want, first,
+                             ef=case[5])
+
+
+@pytest.mark.parametrize("case", HYB_TRAIN_CASES, ids=lambda c: c[0])
+def test_hybrid_replicated_leaves_bitwise_equal_over_model(runs, case):
+    """After the steps, the model ranks of each data coordinate hold the
+    same gn, dt_bias, norms, shared-block norms and every other leaf the
+    model axis does not split, bit for bit: each rank's use of a slice of
+    gn and dt_bias enters through copy_to_model."""
+    name = case[0]
+    _assert_replicated_equal(
+        [r["hybrid"]["replicated"][name] for r in runs["ranks"]],
+        [r["hybrid"]["coord"][name] for r in runs["ranks"]],
+        among=(".gn", ".dt_bias", ".norm1", "shared.norm2"))
+
+
+def test_hybrid_checkpoint_restores_into_one_process(runs):
+    """The trained (2, 4) state saved by `CheckpointManager` (a collective
+    of its mesh), restored without shardings into one process: its
+    parameters are the mesh's trained ones bit for bit, and its prefill
+    equals the trained mesh model's within 1e-5."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import _to_jax_layout
+    from repro_torch.models import build_model
+    cfg = _hyb_cfg()
+    m = build_model(cfg, device="cpu")
+    named = dict(m.named_parameters())
+    _, back = CheckpointManager(str(runs["tmp"] / "ckpt" / "hybrid")) \
+        .restore(named, device="cpu")
+    with torch.no_grad():
+        for n, p in named.items():
+            p.copy_(back[n])
+    with _one_thread():
+        want = m.prefill(_hyb_batch(cfg))[0].numpy()
+    trained = runs["ranks"][0]["hybrid"]["train"]["zero3_2x4"]["params"]
+    restored = dict(_leaves(_to_jax_layout(back)))
+    assert set(restored) == set(trained)
+    for leaf, a in trained.items():
+        assert restored[leaf].tobytes() == a.tobytes(), leaf
+    for r in runs["ranks"]:
+        np.testing.assert_allclose(r["hybrid"]["trained_prefill"], want,
+                                   atol=TOL_F32)
+
+
+def test_launchers_mesh_single_run_hybrid(runs):
+    """`launch.train` and `launch.serve --decode-mode cp` `--arch zamba2-7b
+    --reduced --mesh single` on (2, 4): the final loss (within 1e-5,
+    relative, as `_assert_train_hybrid` holds each step's) and the tokens
+    of one process's launchers."""
+    from repro_torch.launch.serve import main as serve
+    from repro_torch.launch.train import main as train
+    with _one_thread():
+        loss = train(HYB_TRAIN_ARGV)
+        tokens = sorted((r.uid, tuple(r.out)) for r in serve(HYB_SERVE_ARGV))
+    for r in runs["ranks"]:
+        np.testing.assert_allclose(r["hyb_launch"]["train"], loss,
+                                   rtol=TOL_F32)
+        assert r["hyb_launch"]["serve"] == tokens
